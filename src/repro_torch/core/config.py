@@ -1,0 +1,130 @@
+"""Honeycomb store configuration (port of ``repro.core.config``).
+
+Mirrors the paper's node geometry (Section 3.1) as fixed-width slots:
+
+  paper                         here
+  -----------------------------------------------------------------
+  8 KB node                     ``node_cap`` sorted items + ``log_cap`` log
+                                entries + ``n_shortcuts`` boundary keys
+  48 B header                   SoA scalar columns (type/version/...)
+  464 B shortcut block          ``n_shortcuts`` keys + segment offsets
+  512 B log threshold           ``log_cap`` entries (merge when full)
+  460 B max key                 ``key_words`` * 4 bytes (big-endian lanes)
+  469 B max inline value        ``val_words`` * 4 bytes, larger values go
+                                to the overflow heap (paper: out-of-node)
+  5 B version delta             32-bit delta; wrap forces a merge, same as
+                                the paper's wrap-forces-merge rule
+
+Only ``HoneycombConfig`` and ``bucket_pow2`` are ported so far; the
+service, replication and sharding configs come with those layers.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+# device-resident snapshot layouts (HoneycombConfig.layout); the port
+# serves "packed" only, "legacy" raises NotImplementedError in the shard
+LAYOUTS = ("packed", "legacy")
+
+# device read-path backends (HoneycombConfig.read_backend):
+#   "fused"     — ONE fused traversal launch per read batch: descend + leaf
+#                 resolve + log merge + version resolution in a single kernel
+#                 over the packed node image, the top interior levels served
+#                 from the snapshot's cache array (kernels/fused_read.py).
+#   "reference" — the per-level PyTorch path (core/read_path.py), kept as the
+#                 op-for-op oracle the fused path is checked against.
+READ_BACKENDS = ("fused", "reference")
+
+
+def bucket_pow2(n: int) -> int:
+    """Round a batch/delta length up to a power of two (1 for n <= 1).
+
+    THE shared bucket schedule for everything padded before a device
+    call — read batches and delta row/page-table vectors (core/shard.py) —
+    identical to the reference's, so padded lane counts and sync meters
+    agree between the two packages."""
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class HoneycombConfig:
+    # --- node geometry -----------------------------------------------------
+    node_cap: int = 64          # max items in the sorted block
+    log_cap: int = 16           # log entries before a merge is forced
+    n_shortcuts: int = 8        # boundary keys in the shortcut block
+    key_words: int = 8          # key lanes (uint32, big-endian) => 32 B max key
+    val_words: int = 4          # inline value lanes => 16 B inline values
+    min_fill: float = 0.25      # leaf underflow threshold (merge w/ sibling)
+
+    # --- MVCC / GC ----------------------------------------------------------
+    mvcc: bool = True           # paper Section 3.2; False => version 0 for all
+    max_version_chain: int = 4  # bound on old-version hops a reader may take
+
+    # --- read path ----------------------------------------------------------
+    max_height: int = 8         # static traversal bound of the device reader
+    max_scan_leaves: int = 4    # sibling hops a single SCAN may take
+    max_scan_items: int = 32    # result slots per SCAN request
+
+    # --- accelerator cache / load balancer (Section 5) ----------------------
+    cache_slots: int = 256      # interior-node cache capacity (packed array)
+    cache_ways: int = 4         # set associativity of the metadata table
+    # device cache tier: how many tree levels from the root are packed into
+    # the snapshot's contiguous cache array; lb_fraction is the Section 5
+    # dual-pipe knob — the fraction of cache-HIT level lookups the fused
+    # kernel routes back to the heap-image pipe anyway (results are
+    # identical either way; only the byte split between the pipes moves).
+    cache_levels: int = 2
+    lb_fraction: float = 0.0
+
+    # --- value overflow heap -----------------------------------------------
+    overflow_words: int = 128   # slot size of the out-of-node value heap
+
+    # --- host->device sync (delta snapshots, paper Sections 3-4) ------------
+    # "on_read": sync lazily before a device batch (default, paper-like);
+    # "every_k": sync after every sync_every_k writes (batched sync);
+    # "explicit": only export_snapshot() syncs — device reads may observe a
+    #             stale-but-consistent snapshot.
+    sync_policy: str = "on_read"
+    sync_every_k: int = 64
+    # dirty-row fraction above which a delta sync would move more bytes than
+    # a wholesale republish is worth; fall back to a full publish
+    delta_full_threshold: float = 0.5
+    # device-resident snapshot representation (core/schema.py): "packed" is
+    # ONE contiguous u32 node image per slot — a dirty node syncs as a single
+    # image-row copy (the paper's 8 KB node transfer)
+    layout: str = "packed"
+    read_backend: str = "fused"
+
+    def __post_init__(self):
+        assert self.node_cap % self.n_shortcuts == 0, (
+            "segments must tile the sorted block")
+        assert self.log_cap <= 255, "order hints are 1 byte (paper Fig. 7)"
+        assert self.node_cap <= 2 ** 15, "back pointers are 2 bytes"
+        assert self.sync_policy in ("on_read", "every_k", "explicit"), (
+            f"unknown sync_policy {self.sync_policy!r}")
+        assert 0.0 < self.delta_full_threshold <= 1.0, (
+            "delta_full_threshold is a dirty fraction in (0, 1]")
+        assert self.sync_every_k >= 1, "sync_every_k must be >= 1"
+        assert self.layout in LAYOUTS, (
+            f"unknown snapshot layout {self.layout!r} (one of {LAYOUTS})")
+        assert self.read_backend in READ_BACKENDS, (
+            f"unknown read_backend {self.read_backend!r} "
+            f"(one of {READ_BACKENDS})")
+        assert self.cache_levels >= 1, "cache the root level at least"
+        assert 0.0 <= self.lb_fraction <= 1.0, (
+            "lb_fraction is a routed fraction in [0, 1]")
+
+    @property
+    def segment_items(self) -> int:
+        """Items per sorted-block segment (the unit a search fetches)."""
+        return self.node_cap // self.n_shortcuts
+
+    @property
+    def max_key_bytes(self) -> int:
+        return self.key_words * 4
+
+    @property
+    def max_inline_val_bytes(self) -> int:
+        return self.val_words * 4
+

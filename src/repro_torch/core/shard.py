@@ -1,0 +1,545 @@
+"""StoreShard — one device's slice of the store (port of
+``repro.core.shard``, packed layout).
+
+A host B+Tree writer (``HoneycombTree``), the MVCC/epoch machinery, an
+interior cache and the device read path, bound to a DOUBLE-BUFFERED
+resident device snapshot kept in sync by the incremental delta subsystem:
+
+  * ``begin_export()`` / ``flip()`` — the two halves of the host->device
+    synchronization point.  ``begin_export`` *stages*: the first export
+    publishes the packed heap image wholesale; afterwards only *dirty node
+    rows* plus the batched page-table commands and the read version are
+    scattered into the STANDBY snapshot, so sync traffic scales with write
+    volume, and in-flight read batches keep answering from the untouched
+    active snapshot.  ``flip`` *publishes* the standby (``epoch`` counts
+    flips); old-epoch snapshots are separate device tensors and keep
+    answering at their pinned read version.
+  * ``export_snapshot()`` ≡ ``begin_export(); flip()``.
+  * ``cfg.sync_policy`` — when the sync happens: lazily before device reads
+    ("on_read"), after every K writes ("every_k"), or only when explicitly
+    requested ("explicit", stale-but-consistent reads; an accelerator epoch
+    pins the resident snapshot so host fallbacks run at its read version).
+  * ``get_batch()/scan_batch()`` — wait-free reads against the snapshot,
+    epoch-stamped, padded to power-of-two batch buckets.  With
+    ``read_backend="fused"`` one kernel launch serves a batch
+    (``kernels/ops.py`` picks the kernel for CUDA tensors and its plain
+    version for CPU tensors); SCANs the device truncates fall back to the
+    host tree.
+
+Every snapshot tensor lives on ``device`` (``"cuda"`` unless the caller
+asks for the CPU).  Publishing copies host arrays explicitly:
+``torch.from_numpy`` aliases numpy memory, and an aliased snapshot would
+see later host mutations.  Not ported yet: the legacy per-field layout
+(raises), the log-shipped replication feed (setting ``log_capture``
+raises), the service ``routing()`` accessor and the EpochSan seams.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from ..kernels import ops as kernel_ops
+from .api import wire_entry_nbytes
+from .btree import HoneycombTree
+from .cache import InteriorCache
+from .config import HoneycombConfig, bucket_pow2
+from .keys import pack_keys
+from .pipeline import PipelineStats
+from .read_path import (SnapshotDelta, TreeSnapshot, apply_snapshot_delta,
+                        attach_cache_image, batched_get, batched_scan)
+from .schema import NodeImageLayout
+from .telemetry import CLOCK, samples_from
+
+_now = CLOCK            # THE injectable monotonic clock (core/telemetry.py)
+
+
+@dataclasses.dataclass
+class SyncStats:
+    snapshots: int = 0            # exports that refreshed the device image
+    full_syncs: int = 0           # wholesale republishes
+    delta_syncs: int = 0          # incremental scatters
+    bytes_synced: int = 0         # host->device array traffic (both modes)
+    pagetable_commands: int = 0   # accumulated PCIe page-table updates
+    read_version_updates: int = 0  # accumulated PCIe read-version writes
+    delta_rows: int = 0           # dirty node rows scattered (cumulative)
+    delta_fraction: float = 0.0   # dirty fraction at the last sync
+    log_entries: int = 0          # writes accepted (one log entry each)
+    log_wire_bytes: int = 0       # append-only wire-format bytes
+    #   (key+value+WIRE_ENTRY_OVERHEAD per write)
+    image_dma_count: int = 0      # node-image copies: ONE per dirty node on
+    #   a delta, one per whole image on a full publish
+    image_bytes: int = 0          # node-image payload bytes
+    log_replays: int = 0          # follower stagings replayed from the op
+    #   log (replication; always 0 until that layer is ported)
+
+    def merge(self, other: "SyncStats"):
+        """Accumulate another shard's counters (aggregation)."""
+        for f in dataclasses.fields(self):
+            if f.name == "delta_fraction":
+                self.delta_fraction = max(self.delta_fraction,
+                                          other.delta_fraction)
+            else:
+                setattr(self, f.name,
+                        getattr(self, f.name) + getattr(other, f.name))
+
+    def collect(self):
+        """Registry samples: ``sync_*`` counters, ``sync_delta_fraction``
+        as a gauge."""
+        return samples_from(self, "sync", "shard",
+                            gauges=("delta_fraction",))
+
+
+@dataclasses.dataclass
+class StagedSync:
+    """One ``begin_export`` staging as it crossed the bus — the unit a
+    follower replica will replay.  ``kind`` is "full" or "delta";
+    ``delta`` is the staged ``SnapshotDelta`` (None for full publishes);
+    ``snapshot`` is the staged standby; ``nbytes`` the metered traffic and
+    ``delta_rows`` the unpadded dirty-row count; ``read_version`` is what
+    the standby answers at once flipped.  ``log_payload`` stays None until
+    the log-shipped feed is ported."""
+    kind: str
+    snapshot: TreeSnapshot
+    delta: SnapshotDelta | None
+    nbytes: int
+    delta_rows: int
+    read_version: int
+    image_dmas: int = 0
+    image_bytes: int = 0
+    log_payload: "LogPayload | None" = None
+
+
+@dataclasses.dataclass
+class LogPayload:
+    """One sync epoch's writes encoded once for every follower lane: the
+    op wire stream plus each write's fast-path placement (row, log slot,
+    backptr, order hint, version delta).  Produced by the log-shipped
+    replication feed, which is not ported yet."""
+    wire: bytes
+    rows: np.ndarray
+    slots: np.ndarray
+    backptrs: np.ndarray
+    hints: np.ndarray
+    vdeltas: np.ndarray
+    entries: int
+    read_version: int
+    wire_nbytes: int
+    nbytes: int
+
+
+class StoreShard:
+    """One range-shard of the store: its own tree, resident device snapshot,
+    incremental delta sync and SyncStats."""
+
+    def __init__(self, cfg: HoneycombConfig | None = None,
+                 heap_capacity: int = 1024, shard_id: int = 0,
+                 device: str | torch.device = "cuda"):
+        self.cfg = cfg or HoneycombConfig()
+        if self.cfg.layout != "packed":
+            raise NotImplementedError(
+                f"layout={self.cfg.layout!r} is not ported; the port serves "
+                f"the packed node image only")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the store runs on the GPU; pass "
+                "device='cpu' to run its plain PyTorch path")
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {self.device}")
+        self.shard_id = shard_id
+        self.tree = HoneycombTree(self.cfg, heap_capacity)
+        self.cache = InteriorCache(self.cfg)
+        # Section 5: a page-table command for a LID invalidates that LID's
+        # cache entry
+        self.tree.pt.on_remap = self.cache.invalidate
+        self.sync_stats = SyncStats()
+        self._snapshot: TreeSnapshot | None = None
+        self._snapshot_dirty = True
+        self._writes_since_sync = 0
+        # counter watermarks so multi-sync runs accumulate (not overwrite)
+        self._pt_commands_seen = 0
+        self._rv_updates_seen = 0
+        # array generations the resident snapshot was published against;
+        # growth changes shapes and forces a full republish
+        self._heap_gen = -1
+        self._pt_gen = -1
+        # read version the resident snapshot answers at; under "explicit"
+        # an accelerator epoch pins it so GC keeps old buffers alive
+        self._snapshot_rv: int | None = None
+        self._snapshot_pin: tuple[int, int] | None = None
+        # double buffer: begin_export() stages the next epoch into the
+        # standby; flip() publishes it
+        self.epoch = 0
+        self.pipeline_stats = PipelineStats()
+        self._standby: TreeSnapshot | None = None
+        self._standby_rv: int | None = None
+        self._standby_pin: tuple[int, int] | None = None
+        # replication hooks: a replica group sets these so every staging
+        # and flip feeds its followers; last_staged describes the staged,
+        # unflipped standby only
+        self.last_staged: StagedSync | None = None
+        self.on_staged: Callable[[StagedSync], None] | None = None
+        self.on_flip: Callable[[], None] | None = None
+        self._staged_delta: SnapshotDelta | None = None
+        # device SCANs truncated by the leaf/slot budget, answered by the
+        # host tree instead
+        self.scan_fallbacks = 0
+
+    # ------------------------------------------------------------- writes
+    def put(self, key: bytes, value: bytes, thread: int = 0):
+        self.tree.put(key, value, thread)
+        self._note_write(key, value)
+
+    def update(self, key: bytes, value: bytes, thread: int = 0):
+        self.tree.update(key, value, thread)
+        self._note_write(key, value)
+
+    def delete(self, key: bytes, thread: int = 0):
+        self.tree.delete(key, thread)
+        self._note_write(key, b"")
+
+    @property
+    def log_capture(self) -> bool:
+        """Whether writes are captured for the log-shipped replication
+        feed; always False until that feed is ported."""
+        return False
+
+    @log_capture.setter
+    def log_capture(self, on: bool):
+        if on:
+            raise NotImplementedError(
+                "the log-shipped replication feed is not ported")
+
+    def _note_write(self, key: bytes, value: bytes):
+        self._snapshot_dirty = True
+        self._writes_since_sync += 1
+        self.sync_stats.log_entries += 1
+        self.sync_stats.log_wire_bytes += wire_entry_nbytes(key, value)
+        if (self.cfg.sync_policy == "every_k"
+                and self._writes_since_sync >= self.cfg.sync_every_k):
+            self.export_snapshot()
+
+    # ---------------------------------------------------- host-side reads
+    def get(self, key: bytes) -> bytes | None:
+        return self.tree.get(key)
+
+    def scan(self, lo: bytes, hi: bytes, max_items: int | None = None):
+        return self.tree.scan(lo, hi, max_items)
+
+    @property
+    def serving_version(self) -> int:
+        """Read version of the active snapshot — what a device batch that
+        just dispatched here answered at (0 before the first publish)."""
+        return self._snapshot_rv if self._snapshot_rv is not None else 0
+
+    # ------------------------------------------------- snapshot mechanics
+    def begin_export(self, force: bool = False, full: bool = False) -> bool:
+        """Stage the host->device sync into the STANDBY snapshot.
+
+        After the first wholesale publish, only dirty node rows + batched
+        page-table commands + the read version cross the bus; ``full=True``
+        forces a wholesale republish, ``force=True`` re-stages even when
+        clean.  The ACTIVE snapshot keeps answering until ``flip()``.
+        Returns True when a standby was (re)staged."""
+        if ((self._snapshot is not None or self._standby is not None)
+                and not self._snapshot_dirty and not force and not full):
+            return False   # clean, and some epoch (staged or active) exists
+        t0 = _now()
+        t = self.tree
+        h = t.heap
+        stats = self.sync_stats
+        stats.pagetable_commands += t.pt.sync_commands - self._pt_commands_seen
+        self._pt_commands_seen = t.pt.sync_commands
+        stats.read_version_updates += (t.versions.device_updates
+                                       - self._rv_updates_seen)
+        self._rv_updates_seen = t.versions.device_updates
+        stats.snapshots += 1
+
+        # an unflipped standby accumulates further deltas; otherwise the
+        # active snapshot is the scatter base
+        base = self._standby if self._standby is not None else self._snapshot
+        dirty = h.dirty
+        frac = len(dirty) / h.capacity
+        can_delta = (base is not None and not full
+                     and self._heap_gen == h.generation
+                     and self._pt_gen == t.pt.generation
+                     and frac <= self.cfg.delta_full_threshold)
+        # refresh the interior cache BEFORE publishing so the staged
+        # snapshot carries this epoch's cache frontier
+        self.cache.refresh(t)
+        bytes0 = stats.bytes_synced
+        dmas0, ibytes0 = stats.image_dma_count, stats.image_bytes
+        if can_delta:
+            snap = self._publish_delta(base,
+                                       np.fromiter(sorted(dirty), np.int32,
+                                                   len(dirty)))
+            stats.delta_syncs += 1
+            stats.delta_rows += len(dirty)
+            stats.delta_fraction = frac
+            staged_kind, staged_rows = "delta", len(dirty)
+        else:
+            snap = self._publish_full()
+            stats.full_syncs += 1
+            stats.delta_fraction = 1.0
+            staged_kind, staged_rows = "full", 0
+        dirty.clear()
+        self._heap_gen = h.generation
+        self._pt_gen = t.pt.generation
+        self._snapshot_dirty = False
+        self._writes_since_sync = 0
+        self._standby = snap
+        self._standby_rv = int(t.versions.read_version())
+        if self.cfg.sync_policy == "explicit" and self._standby_pin is None:
+            # pin an accelerator epoch NOW, while the staged read version is
+            # current, so host fallbacks can still walk version chains back
+            # to it after the flip; the pin rolls forward at the next flip
+            self._standby_pin = t.epochs.accel_begin_batch(1)
+        self.pipeline_stats.staged_exports += 1
+        self.pipeline_stats.export_s += _now() - t0
+        self.last_staged = StagedSync(
+            kind=staged_kind, snapshot=snap,
+            delta=self._staged_delta if staged_kind == "delta" else None,
+            nbytes=stats.bytes_synced - bytes0, delta_rows=staged_rows,
+            read_version=self._standby_rv,
+            image_dmas=stats.image_dma_count - dmas0,
+            image_bytes=stats.image_bytes - ibytes0)
+        self._staged_delta = None
+        if self.on_staged is not None:
+            self.on_staged(self.last_staged)
+        return True
+
+    def flip(self) -> TreeSnapshot | None:
+        """Publish the staged standby as the active snapshot — the atomic
+        epoch advance of the double buffer.  No-op when nothing is
+        staged."""
+        if self._standby is None:
+            return self._snapshot
+        self._snapshot = self._standby
+        self._snapshot_rv = self._standby_rv
+        self._standby = None
+        self._standby_rv = None
+        self.epoch += 1
+        self.pipeline_stats.flips += 1
+        old_pin = self._snapshot_pin
+        self._snapshot_pin = self._standby_pin
+        self._standby_pin = None
+        if old_pin is not None:
+            self.tree.epochs.accel_complete_batch(*old_pin)
+        if self.on_flip is not None:
+            self.on_flip()
+        self.last_staged = None
+        return self._snapshot
+
+    def export_snapshot(self, force: bool = False,
+                        full: bool = False) -> TreeSnapshot:
+        """Host -> device sync: ``begin_export()`` then ``flip()``."""
+        self.begin_export(force=force, full=full)
+        return self.flip()   # no-op returning the active snapshot if clean
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        """A COPY of a 32-bit host array on the shard's device, as int32
+        (u32 words keep their bit pattern)."""
+        a = np.ascontiguousarray(arr)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        assert a.dtype == np.int32, a.dtype
+        return torch.from_numpy(a).to(self.device, copy=True)
+
+    def _publish_full(self) -> TreeSnapshot:
+        """Wholesale republish: the whole store crosses the bus as ONE
+        contiguous [S, image_words] image copy (plus the page table)."""
+        t = self.tree
+        h = t.heap
+        pt_image = t.pt.flush_to_device()
+        stats = self.sync_stats
+        layout = NodeImageLayout.for_config(self.cfg)
+        stats.image_bytes += h.capacity * layout.node_image_bytes
+        img = layout.pack(h)
+        stats.bytes_synced += img.nbytes + pt_image.nbytes
+        stats.image_dma_count += 1
+        snap = TreeSnapshot(
+            image=self._dev(img), pagetable=self._dev(pt_image),
+            root_lid=int(t.root_lid),
+            read_version=int(t.versions.read_version()),
+            cache_lids=self._dev(self.cache.device_lids()))
+        # materialize the cache tier on the device from the image just
+        # shipped — only the ~KB LID vector crossed the bus
+        return attach_cache_image(snap, self.cfg)
+
+    def _publish_delta(self, base: TreeSnapshot,
+                       rows: np.ndarray) -> TreeSnapshot:
+        """Incremental sync: scatter dirty node rows and pending page-table
+        commands over ``base`` (the standby-in-progress, or the active
+        snapshot when none is staged).  Moves (and meters) O(dirty) bytes;
+        each dirty node is ONE contiguous image row (``image_dma_count``
+        grows by exactly len(rows))."""
+        t = self.tree
+        h = t.heap
+        stats = self.sync_stats
+        layout = NodeImageLayout.for_config(self.cfg)
+        pt_lids, pt_phys = t.pt.take_pending()
+        # pad to bucketed sizes with repeats (duplicate indices carry
+        # identical data); when empty, row/lid 0 rewrites itself with its
+        # current contents (clean rows match the device image)
+        rows_p = self._pad_index(rows, bucket_pow2(len(rows)))
+        lids_p = self._pad_index(pt_lids, bucket_pow2(len(pt_lids)))
+        phys_p = t.pt.device_image[lids_p]
+        node_bytes = len(rows) * layout.node_image_bytes
+        stats.image_bytes += node_bytes
+        stats.image_dma_count += len(rows)
+        delta = SnapshotDelta(
+            rows=self._dev(rows_p), image=self._dev(layout.pack(h, rows_p)),
+            pt_lids=self._dev(lids_p), pt_phys=self._dev(phys_p),
+            root_lid=int(t.root_lid),
+            read_version=int(t.versions.read_version()),
+            cache_lids=self._dev(self.cache.device_lids()))
+        stats.bytes_synced += pt_lids.nbytes + pt_phys.nbytes + node_bytes
+        self._staged_delta = delta
+        return apply_snapshot_delta(base, delta, cfg=self.cfg)
+
+    @staticmethod
+    def _pad_index(idx: np.ndarray, size: int) -> np.ndarray:
+        idx = np.asarray(idx, np.int32)
+        if len(idx) == 0:
+            return np.zeros(size, np.int32)
+        return np.concatenate(
+            [idx, np.full(size - len(idx), idx[-1], np.int32)])
+
+    # ------------------------------------------------- accelerated reads
+    def _note_read_meters(self, meters: torch.Tensor):
+        """Fold one fused dispatch's device meters into CacheStats."""
+        vh, hg, lr = meters.tolist()
+        s = self.cache.stats
+        s.vmem_hits += vh
+        s.heap_gathers += hg
+        s.lb_routed += lr
+
+    def _snapshot_for_read(self) -> TreeSnapshot:
+        """The snapshot device batches execute against.  "explicit" policy
+        reads the resident (possibly stale, always consistent) snapshot;
+        the other policies sync lazily here."""
+        if self.cfg.sync_policy == "explicit" and self._snapshot is not None:
+            return self._snapshot
+        return self.export_snapshot()
+
+    def _fallback_read_version(self) -> int | None:
+        """Read version for host fallbacks of device requests: the
+        SNAPSHOT's under "explicit" (the epoch pin keeps those buffers
+        alive), else the live tree's, which equals the snapshot's."""
+        if self.cfg.sync_policy == "explicit" and self._snapshot_rv is not None:
+            return self._snapshot_rv
+        return None
+
+    def get_batch(self, keys: Sequence[bytes]) -> list[bytes | None]:
+        """Batched GET on the device path, epoch-stamped."""
+        keys = list(keys)
+        if not keys:
+            return []
+        return self._device_get(self._snapshot_for_read(), keys)
+
+    def _device_get(self, snap: TreeSnapshot,
+                    keys: list[bytes]) -> list[bytes | None]:
+        """Execute one dense GET batch against ``snap``."""
+        padded = keys + [keys[0]] * (bucket_pow2(len(keys)) - len(keys))
+        self.pipeline_stats.dispatched_lanes += len(keys)
+        self.pipeline_stats.padded_lanes += len(padded)
+        lanes, lens = pack_keys(padded, self.cfg.key_words)
+        rb = self.cfg.read_backend
+        kernel_ops.record_read_dispatch("get", rb, self.cfg)
+        lo, hi = self.tree.epochs.accel_begin_batch(len(keys))
+        try:
+            key_t, len_t = self._dev(lanes), self._dev(lens)
+            if rb == "fused":
+                res, meters = kernel_ops.batched_get_fused(
+                    snap, key_t, len_t, cfg=self.cfg,
+                    lb_fraction=self.cfg.lb_fraction)
+                self._note_read_meters(meters)
+            else:
+                res = batched_get(snap, key_t, len_t, self.cfg)
+            found = res.found.cpu().numpy()
+            vals = res.vals.cpu().numpy().view(np.uint32)
+            vlens = res.vallens.cpu().numpy()
+        finally:
+            self.tree.epochs.accel_complete_batch(lo, hi)
+        return [self._decode_value(vals[i], int(vlens[i])) if found[i]
+                else None for i in range(len(keys))]
+
+    def scan_batch(self, ranges: Sequence[tuple[bytes, bytes]]
+                   ) -> list[list[tuple[bytes, bytes]]]:
+        """Batched SCAN on the device path.  Requests the device could not
+        complete (leaf budget/slots) fall back to the host tree — the paper
+        likewise runs some SCANs on CPU cores (Section 6.3)."""
+        ranges = list(ranges)
+        if not ranges:
+            return []
+        snap = self._snapshot_for_read()
+        return self._device_scan(snap, ranges, self._fallback_read_version())
+
+    def _device_scan(self, snap: TreeSnapshot,
+                     ranges: list[tuple[bytes, bytes]],
+                     fallback_rv: int | None
+                     ) -> list[list[tuple[bytes, bytes]]]:
+        """Execute one dense SCAN batch against ``snap``; truncated
+        requests fall back to the host tree at ``fallback_rv``."""
+        padded = ranges + [ranges[0]] * (bucket_pow2(len(ranges))
+                                         - len(ranges))
+        self.pipeline_stats.dispatched_lanes += len(ranges)
+        self.pipeline_stats.padded_lanes += len(padded)
+        lo_l, lo_n = pack_keys([r[0] for r in padded], self.cfg.key_words)
+        hi_l, hi_n = pack_keys([r[1] for r in padded], self.cfg.key_words)
+        rb = self.cfg.read_backend
+        kernel_ops.record_read_dispatch("scan", rb, self.cfg)
+        slo, shi = self.tree.epochs.accel_begin_batch(len(ranges))
+        try:
+            args = (self._dev(lo_l), self._dev(lo_n), self._dev(hi_l),
+                    self._dev(hi_n))
+            if rb == "fused":
+                res, meters = kernel_ops.batched_scan_fused(
+                    snap, *args, cfg=self.cfg,
+                    lb_fraction=self.cfg.lb_fraction)
+                self._note_read_meters(meters)
+            else:
+                res = batched_scan(snap, *args, self.cfg)
+            count = res.count.cpu().numpy()
+            keys = res.keys.cpu().numpy().view(np.uint32)
+            klens = res.keylens.cpu().numpy()
+            vals = res.vals.cpu().numpy().view(np.uint32)
+            vlens = res.vallens.cpu().numpy()
+            trunc = res.truncated.cpu().numpy()
+        finally:
+            self.tree.epochs.accel_complete_batch(slo, shi)
+        self.scan_fallbacks += int(trunc[:len(ranges)].sum())
+        out = []
+        for b, (lo, hi) in enumerate(ranges):
+            if trunc[b]:
+                out.append(self.tree.scan(lo, hi, read_version=fallback_rv))
+                continue
+            items = []
+            for j in range(int(count[b])):
+                k = keys[b, j].astype(">u4").tobytes()[: int(klens[b, j])]
+                items.append((k, self._decode_value(vals[b, j],
+                                                    int(vlens[b, j]))))
+            out.append(items)
+        return out
+
+    def _decode_value(self, lanes: np.ndarray, length: int) -> bytes:
+        if length <= self.cfg.max_inline_val_bytes:
+            return lanes.astype(">u4").tobytes()[:length]
+        return self.tree.overflow.read(int(lanes[0]))
+
+    # ------------------------------------------------------------- misc
+    def collect_garbage(self) -> int:
+        return self.tree.gc.collect()
+
+    @property
+    def stats(self):
+        return self.tree.stats
+
+    @property
+    def cache_stats(self):
+        """The interior cache's meters (metadata-table probes plus the
+        fused read path's cache/heap split)."""
+        return self.cache.stats

@@ -1,0 +1,111 @@
+"""Build the port's CUDA sources and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C launcher.  ``load(name)``
+compiles it with ``nvcc`` for ``sm_90a`` into a shared library under
+``build/repro_torch/`` at the repository root (named by a hash of the
+source, so an edited source rebuilds) and loads it; ``build(names)``
+starts one ``nvcc`` per missing library, all at once, and waits for them.
+Nothing is built when this module is imported.
+
+``LAUNCHES`` holds one plain integer per kernel; each wrapper adds one
+where it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES = {"fused_get": 0, "fused_scan": 0, "row_scatter": 0}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    for cand in (home and os.path.join(home, "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names) -> dict[str, str]:
+    """Compile every named source whose library is missing, one ``nvcc``
+    process per source, all started together.  Returns the compiler's
+    output (``-Xptxas -v`` register and shared-memory report) per source
+    it built; raises if any compile fails."""
+    jobs = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT), tmp, so)
+    reports, failed = {}, []
+    for name, (proc, tmp, so) in jobs.items():
+        out = proc.communicate()[0].decode(errors="replace")
+        reports[name] = out
+        if proc.returncode:
+            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def check_tensor(t, name: str, ndim: int, device=None) -> None:
+    """A kernel argument must be a contiguous 32-bit CUDA tensor of the
+    given rank (on ``device`` when one is named)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.device.type != "cuda" or (device is not None and t.device != device):
+        raise ValueError(f"{name} must lie on {device or 'a CUDA device'}, "
+                         f"got {t.device}")
+    if t.dtype not in (torch.int32, torch.uint32, torch.float32):
+        raise ValueError(f"{name} must hold 4-byte elements, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {t.dim()}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,132 @@
+"""Dispatch for the port's kernels (port of ``repro.kernels.ops``).
+
+The tensor's device selects the implementation: a CPU tensor runs the
+plain PyTorch version (``kernels/ref.py``), a CUDA tensor launches the
+hand-written kernel (``delta_scatter.py``, ``fused_read.py``), and any
+other device raises.  A CUDA call never falls back to the plain version.
+
+``READ_DISPATCHES`` meters dispatched launches per read batch, recorded
+at the shard's dispatch site: the fused kernel executes the whole
+traversal in ONE launch, where the reference path issues one stage per
+descend level plus one per scan-leaf visit (floor pre-pass + forward
+pass) and GET adds its equality post-pass.  ``kernels/build.LAUNCHES``
+counts the launches each kernel wrapper actually made.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from . import delta_scatter as _ds
+from . import fused_read as _fr
+from . import ref as _ref
+
+READ_DISPATCHES: collections.Counter = collections.Counter()
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU tensor; raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def _fused_device(snap) -> bool:
+    """The fused read serves only a snapshot with its cache tier attached
+    (every publish attaches it); True when the snapshot lies on CUDA."""
+    if snap.cache_lids is None or snap.cache_image is None:
+        raise ValueError("the fused read needs the snapshot's cache tier")
+    return _on_cuda(snap.image)
+
+
+def read_dispatch_count(op: str, read_backend: str, cfg) -> int:
+    """Device dispatches one ``op`` ("get"/"scan") batch costs under
+    ``read_backend`` ("fused"/"reference") at this config's static
+    traversal bounds."""
+    if read_backend == "fused":
+        return 1
+    n = cfg.max_height + 2 * cfg.max_scan_leaves
+    return n + 1 if op == "get" else n
+
+
+def record_read_dispatch(op: str, read_backend: str, cfg, batches: int = 1):
+    """Meter ``batches`` read-batch dispatches (called per device call by
+    the shard layer)."""
+    READ_DISPATCHES[(op, read_backend)] += \
+        batches * read_dispatch_count(op, read_backend, cfg)
+    READ_DISPATCHES[("batches", op, read_backend)] += batches
+
+
+def reset_read_dispatches():
+    READ_DISPATCHES.clear()
+
+
+def read_dispatch_stats() -> dict:
+    """Per-(op, backend) dispatched-launch totals and per-batch averages."""
+    out = {}
+    for op in ("get", "scan"):
+        for rb in ("fused", "reference"):
+            b = READ_DISPATCHES.get(("batches", op, rb), 0)
+            d = READ_DISPATCHES.get((op, rb), 0)
+            if b:
+                out[f"{op}_{rb}"] = {"batches": b, "dispatches": d,
+                                     "per_batch": d / b}
+    return out
+
+
+def collect() -> list:
+    """Telemetry source for the launch meter: plain
+    ``(name, kind, value, labels)`` tuples, as in the reference."""
+    out = []
+    for op in ("get", "scan"):
+        for rb in ("fused", "reference"):
+            b = READ_DISPATCHES.get(("batches", op, rb), 0)
+            d = READ_DISPATCHES.get((op, rb), 0)
+            if b or d:
+                labels = {"layer": "kernel", "op": op, "backend": rb}
+                out.append(("read_dispatches", "counter", d, labels))
+                out.append(("read_batches", "counter", b, labels))
+    return out
+
+
+def snapshot_delta_scatter(dst, rows, upd):
+    """Apply one delta sync's dirty rows to a resident device array, in
+    place: dst[rows[i]] = upd[i].  Returns ``dst``."""
+    if _on_cuda(dst):
+        return _ds.snapshot_delta_scatter(dst, rows, upd)
+    return _ref.snapshot_delta_scatter_ref(dst, rows, upd)
+
+
+def snapshot_image_scatter(image, rows, upd):
+    """Apply one delta sync to the PACKED snapshot image, in place: one
+    contiguous [image_words] row copy per dirty node.  Returns
+    ``image``."""
+    if _on_cuda(image):
+        return _ds.snapshot_image_scatter(image, rows, upd)
+    return _ref.snapshot_image_scatter_ref(image, rows, upd)
+
+
+def batched_get_fused(snap, key, klen, *, cfg, lb_fraction: float = 0.0):
+    """Fused device-resident GET: the whole batch traversal in ONE launch,
+    the first ``cfg.cache_levels`` levels served from the snapshot's cache
+    tier.  Returns (GetResult, meters i32[3] =
+    [vmem_hits, heap_gathers, lb_routed])."""
+    if _fused_device(snap):
+        return _fr.batched_get_fused(snap, key, klen, cfg=cfg,
+                                     lb_fraction=lb_fraction)
+    return _ref.batched_get_fused_ref(snap, key, klen, cfg=cfg,
+                                      lb_fraction=lb_fraction)
+
+
+def batched_scan_fused(snap, lo, lolen, hi, hilen, *, cfg,
+                       lb_fraction: float = 0.0):
+    """Fused device-resident SCAN — see ``batched_get_fused``.  Returns
+    (ScanResult, meters i32[3])."""
+    if _fused_device(snap):
+        return _fr.batched_scan_fused(snap, lo, lolen, hi, hilen, cfg=cfg,
+                                      lb_fraction=lb_fraction)
+    return _ref.batched_scan_fused_ref(snap, lo, lolen, hi, hilen, cfg=cfg,
+                                       lb_fraction=lb_fraction)

@@ -1,0 +1,167 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here needs an NVIDIA GPU and skips without one; run them
+on the card with ``PYTHONPATH=src python -m pytest -m gpu
+tests/test_torch_cuda.py``.  Integer results must be exactly equal.
+
+The card is looked for inside the ``cuda`` fixture, never at import, so
+every pytest-xdist worker collects the same tests."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import HoneycombConfig, HoneycombStore
+from repro_torch.core.keys import int_key, pack_keys
+from repro_torch.core.read_path import attach_cache_image
+from repro_torch.kernels import build, delta_scatter, fused_read, ref
+
+pytestmark = pytest.mark.gpu
+
+SMALL = HoneycombConfig(node_cap=16, log_cap=4, n_shortcuts=4,
+                        cache_slots=32, max_scan_leaves=2,
+                        max_scan_items=16, max_height=6)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _store(cfg, n, device, seed=0):
+    rng = np.random.default_rng(seed)
+    st = HoneycombStore(cfg, heap_capacity=256, device=device)
+    for i in rng.permutation(n):
+        st.put(int_key(int(i)), b"v%06d" % i)
+    for i in range(0, n, 7):
+        st.update(int_key(i), b"u%06d" % i)
+    for i in range(0, n, 13):
+        st.delete(int_key(i))
+    return st
+
+
+def _keys(keys, cfg, device):
+    lanes, lens = pack_keys(keys, cfg.key_words)
+    return (torch.from_numpy(lanes.view(np.int32)).to(device),
+            torch.from_numpy(lens).to(device))
+
+
+def _assert_equal(want, got):
+    for f in want._fields:
+        a, b = getattr(want, f), getattr(got, f)
+        assert a.dtype == b.dtype, f
+        assert torch.equal(a, b), f
+
+
+def _snapshots(st, cfg):
+    """The store's snapshot at its own read version and at two older ones
+    (which walk MVCC old-version chains), cache tier re-attached."""
+    snap = st.export_snapshot()
+    rv = snap.read_version
+    return [snap] + [attach_cache_image(snap._replace(read_version=v), cfg)
+                     for v in (max(rv - 40, 0), max(rv - 400, 0))]
+
+
+@pytest.mark.parametrize("cfg,n", [(SMALL, 300), (HoneycombConfig(), 3000)])
+@pytest.mark.parametrize("lb_fraction", [0.0, 0.25])
+def test_fused_get_kernel_matches_plain(cuda, cfg, n, lb_fraction):
+    st = _store(cfg, n, cuda)
+    keys = [int_key(int(i)) for i in
+            np.random.default_rng(1).integers(0, n + 50, 100)]
+    key, klen = _keys(keys, cfg, cuda)
+    for snap in _snapshots(st, cfg):
+        want, wm = ref.batched_get_fused_ref(snap, key, klen, cfg=cfg,
+                                             lb_fraction=lb_fraction)
+        got, gm = fused_read.batched_get_fused(snap, key, klen, cfg=cfg,
+                                               lb_fraction=lb_fraction)
+        _assert_equal(want, got)
+        assert torch.equal(wm, gm)
+
+
+@pytest.mark.parametrize("cfg,n", [(SMALL, 300), (HoneycombConfig(), 3000)])
+@pytest.mark.parametrize("lb_fraction", [0.0, 0.25])
+def test_fused_scan_kernel_matches_plain(cuda, cfg, n, lb_fraction):
+    st = _store(cfg, n, cuda)
+    rng = np.random.default_rng(2)
+    los = rng.integers(0, n + 20, 96)
+    widths = rng.choice([0, 3, 8, 40, 200], 96)
+    lo, lolen = _keys([int_key(int(x)) for x in los], cfg, cuda)
+    hi, hilen = _keys([int_key(int(x + w)) for x, w in zip(los, widths)],
+                      cfg, cuda)
+    for snap in _snapshots(st, cfg):
+        want, wm = ref.batched_scan_fused_ref(snap, lo, lolen, hi, hilen,
+                                              cfg=cfg,
+                                              lb_fraction=lb_fraction)
+        got, gm = fused_read.batched_scan_fused(snap, lo, lolen, hi, hilen,
+                                                cfg=cfg,
+                                                lb_fraction=lb_fraction)
+        _assert_equal(want, got)
+        assert torch.equal(wm, gm)
+        assert bool(want.truncated.any())  # the slot budget is exercised
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_row_scatter_kernel_matches_plain(cuda, dtype):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    S, W = 300, 1273
+    image = torch.randint(-2 ** 31, 2 ** 31 - 1, (S, W), generator=g,
+                          dtype=torch.int32)
+    rows = torch.randperm(S, generator=g)[:50].to(torch.int32)
+    rows = torch.cat([rows, rows[-1:].expand(14)])   # padded repeats
+    upd = torch.randint(-2 ** 31, 2 ** 31 - 1, (50, W), generator=g,
+                        dtype=torch.int32)
+    upd = torch.cat([upd, upd[-1:].expand(14, W)])
+    image, upd = image.view(dtype).to(cuda), upd.view(dtype).to(cuda)
+    rows = rows.to(cuda)
+    want = ref.snapshot_image_scatter_ref(image.clone(), rows, upd)
+    got = delta_scatter.snapshot_image_scatter(image.clone(), rows, upd)
+    assert torch.equal(want.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("policy", ["on_read", "explicit"])
+def test_store_on_cuda_matches_cpu_store(cuda, policy):
+    """The same ops through a CUDA store and a CPU store give the same
+    answers, sync meters and cache meters; the CUDA store's reads and
+    delta syncs go through the kernels."""
+    cfg = dataclasses.replace(SMALL, sync_policy=policy, lb_fraction=0.25)
+    stores = [_store(cfg, 300, d) for d in (cuda, "cpu")]
+    build.reset_launches()
+    rng = np.random.default_rng(3)
+    for rnd in range(4):
+        for s in stores:
+            s.export_snapshot()
+        for i in rng.integers(0, 320, 40):
+            for s in stores:
+                s.update(int_key(int(i)), b"r%d-%d" % (rnd, i))
+        keys = [int_key(int(i)) for i in rng.integers(0, 320, 33)]
+        ranges = [(int_key(int(i)), int_key(int(i) + 9))
+                  for i in rng.integers(0, 320, 17)]
+        gets = [s.get_batch(keys) for s in stores]
+        scans = [s.scan_batch(ranges) for s in stores]
+        assert gets[0] == gets[1] and scans[0] == scans[1]
+    assert stores[0].sync_stats == stores[1].sync_stats
+    assert stores[0].cache_stats == stores[1].cache_stats
+    assert build.LAUNCHES["fused_get"] == 4
+    assert build.LAUNCHES["fused_scan"] == 4
+    assert build.LAUNCHES["row_scatter"] == stores[0].sync_stats.delta_syncs
+    assert stores[0].sync_stats.delta_syncs >= 3
+
+
+@pytest.mark.parametrize("bad", [300, -301])
+def test_row_scatter_kernel_rejects_rows_out_of_range(cuda, bad):
+    """Like the plain version, the wrapper raises on a row outside
+    [-S, S) and writes nothing; -1 wraps to the last row."""
+    image = torch.zeros(300, 1273, dtype=torch.int32, device=cuda)
+    upd = torch.ones(2, 1273, dtype=torch.int32, device=cuda)
+    rows = torch.tensor([5, bad], dtype=torch.int32, device=cuda)
+    with pytest.raises(IndexError):
+        delta_scatter.snapshot_image_scatter(image, rows, upd)
+    assert not bool(image.any())
+    rows = torch.tensor([5, -1], dtype=torch.int32, device=cuda)
+    want = ref.snapshot_image_scatter_ref(image.clone(), rows, upd)
+    got = delta_scatter.snapshot_image_scatter(image, rows, upd)
+    assert torch.equal(want, got) and bool(got[299].eq(1).all())

@@ -1,24 +1,39 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of Honeycomb once on one NVIDIA GPU.
 
-Builds the port's CUDA kernels from the sources in this checkout, loads a
-store of 2^18 8-byte keys with 16-byte values at the paper's node geometry
-(the default ``HoneycombConfig``), serves GET batches and 8-key SCAN
-batches through the fused read kernel, applies about a thousand updates,
-deletes and inserts so that the next read takes a delta sync through the
-row-scatter kernel, and reads again.  Every answer is checked against a
-dict model with floor-start SCAN semantics and against the store's host
-tree, and each kernel's launches during that run are counted.  A
-torch.profiler trace of a few read batches gives the device's busy share.
+Builds the port's three CUDA kernels from the sources in this checkout
+(one ``nvcc`` per source, all started together), then drives two main
+paths at the paper's node geometry (the default ``HoneycombConfig``: 32 B
+keys, 16 B values, 1273-word node images), each with every kernel's
+launch count set to 0 just before it and read just after:
+
+1. The single-shard ``HoneycombStore`` with 2^17 8-byte keys: GET batches
+   and 8-key SCAN batches through the fused read kernel, about a thousand
+   updates, deletes and inserts so that the next read takes a delta sync
+   through the row-scatter kernel, and the reads again.  Every answer is
+   checked against a dict model with floor-start SCAN semantics and
+   against the store's host tree.  A torch.profiler trace of a few read
+   batches gives the device's busy share.
+2. The range-sharded, replicated ``ShardedHoneycombStore``: 2 shards x 3
+   replicas (round-robin reads, the log-shipped follower feed, a flat
+   relay topology) over 2^18 keys.  Update epochs replay each epoch's
+   wire log on every follower through the log-replay kernel, or fall back
+   to the row-scatter delta when the tree shape changed; an insert epoch,
+   a GC epoch and a paused follower's full catch-up follow.  After every
+   flip each in-sync follower's image and cache tier must equal its
+   primary's bit for bit, and every GET/SCAN answer (16 SCANs of each
+   batch straddle the shard boundary) must equal the dict model.
+
 Then each kernel is held against its plain PyTorch version on the card at
-the shapes the run gave it.  Each kernel's device time comes from a
+the shapes its path gave it.  Each kernel's device time comes from a
 torch.profiler trace with the L2 cache flushed before every launch; the
 time per call through its Python wrapper and the plain version's time
 come from CUDA events.
 
 Run from the repository root on a machine with a CUDA GPU:
 
-    python3 chip_smoke.py [--keys-log2 18] [--batches 32] [--seed 0]
+    python3 chip_smoke.py [--keys-log2 17] [--replicated-keys-log2 18]
+                          [--seed 0]
 
 It prints the timings, the card's name and power limit, a
 ``{"kernels": [...]}`` line and last ``{"ok": true, "device": {...}}``.
@@ -29,6 +44,8 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import collections
+import dataclasses
 import json
 import statistics
 import struct
@@ -46,6 +63,11 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
 BATCH = 256                     # requests per device read batch
 SCAN_ITEMS = 8                  # YCSB E scan length (benchmarks/ycsb.py:54)
 ROTATE = 16                     # distinct batches cycled while timing
+# update epochs of the replicated store: 8 writes to a shard's random
+# leaves keep an epoch replayable about half the time (a leaf log holds
+# 16 entries), so 64 epochs give each shard a few dozen log-feed epochs
+EPOCHS = 64
+EPOCH_WRITES = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -119,12 +141,15 @@ def print_activities(events, what: str, top: int = 6) -> None:
               f"{tot / n:.2f} us each")
 
 
-def device_ms(fns: list, reps: int, match: str, flush: torch.Tensor) -> float:
+def device_ms(fns: list, reps: int, match: str, flush: torch.Tensor,
+              min_traced: float = 1.0) -> float:
     """Mean device time of the kernel whose name holds ``match``, one
     launch per call, cycling through ``fns``, from the profiler's trace.
     ``flush`` (larger than the 50 MB L2) is overwritten before each call,
-    because the main path's reads find the image cold.  The host's work
-    around the launch is left out."""
+    because the main path finds its data cold.  The host's work around
+    the launch is left out.  A library call's launches may be traced
+    short of ``reps`` (``min_traced`` is the share that must be seen); the
+    mean is then over the launches traced."""
     for fn in fns:
         fn()
 
@@ -133,9 +158,18 @@ def device_ms(fns: list, reps: int, match: str, flush: torch.Tensor) -> float:
             flush.fill_(r)
             fns[r % len(fns)]()
     us = [t for name, t in device_events(run)[0] if match in name]
-    check(len(us) == reps, f"the profiler traced {len(us)} of {reps} "
-                           f"launches of {match}")
-    return sum(us) / reps / 1e3
+    check(reps * min_traced <= len(us) <= reps,
+          f"the profiler traced {len(us)} launches of {match} for {reps} "
+          f"calls")
+    return sum(us) / len(us) / 1e3
+
+
+def image_clone_ms(image: torch.Tensor) -> float:
+    """Time of one clone of a node image, by CUDA events over 32 clones
+    back to back.  A clone of a full image moves tens of MB each way, far
+    longer than its host-side enqueue, so the device sets this time.  (The
+    profiler's trace of such copies can miss most of them.)"""
+    return cuda_ms([image.clone], 32)
 
 
 def max_abs_err(want, got) -> int:
@@ -146,20 +180,22 @@ def max_abs_err(want, got) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--keys-log2", type=int, default=18)
+    ap.add_argument("--keys-log2", type=int, default=17,
+                    help="keys of the single-shard store")
     ap.add_argument("--batches", type=int, default=32,
-                    help="GET batches and SCAN batches per read phase")
+                    help="GET batches and SCAN batches per read phase of "
+                         "the single-shard store")
     ap.add_argument("--writes", type=int, default=1000)
+    ap.add_argument("--replicated-keys-log2", type=int, default=18,
+                    help="keys of the 2-shard, 3-replica store")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.core import HoneycombConfig, HoneycombStore
-    from repro_torch.core.config import bucket_pow2
-    from repro_torch.core.keys import int_key, pack_keys
-    from repro_torch.kernels import build, delta_scatter, fused_read, ops, ref
+    from repro_torch.kernels import build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -167,14 +203,52 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
 
-    # ---- build every kernel of the path, one nvcc per source -------------
+    # ---- build every kernel of both paths, one nvcc per source -----------
     t0 = time.perf_counter()
-    reports = build.build(["fused_read", "row_scatter"])
+    reports = build.build(build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.3f} s")
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    flush = torch.empty(128 << 20, dtype=torch.int8, device=dev)
+
+    print("== single-shard store ==")
+    kernels, launches = single_shard_path(args, dev, flush)
+    print("== 2-shard, 3-replica store ==")
+    replay, repl_launches, scatter = replicated_path(args, dev, flush)
+    row_scatter = next(k for k in kernels if k["name"] == "row_scatter")
+    row_scatter["max_abs_err"] = max(row_scatter["max_abs_err"],
+                                     scatter["max_abs_err"])
+    row_scatter["D_replicated"] = scatter["D"]
+    print(f"row_scatter held against its plain version at D = "
+          f"{row_scatter['D']} (single shard) and D = {scatter['D']} "
+          f"(replicated fallback deltas): max abs err "
+          f"{row_scatter['max_abs_err']}")
+    kernels.append(replay)
+    for k in kernels:         # each kernel's launches over both main paths
+        k["launches_by_path"] = {"single_shard": launches[k["name"]],
+                                 "replicated": repl_launches[k["name"]]}
+        k["launches"] = launches[k["name"]] + repl_launches[k["name"]]
+        check(k["launches"] > 0, f"{k['name']} never launched")
+    print(f"whole run: {time.perf_counter() - t_start:.3f} s")
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def single_shard_path(args, dev, flush):
+    """The paper's deployment, one ``HoneycombStore``: load, read, write,
+    delta-sync, read again; then the fused read and row-scatter kernels
+    against their plain versions.  Returns their ``kernels`` entries and
+    the path's launch counts."""
+    from repro_torch.core import HoneycombConfig, HoneycombStore
+    from repro_torch.core.config import bucket_pow2
+    from repro_torch.core.keys import int_key, pack_keys
+    from repro_torch.kernels import build, delta_scatter, fused_read, ops, ref
 
     # ---- load the store (host tree only; no device work yet) -------------
     cfg = HoneycombConfig()
@@ -316,7 +390,6 @@ def main() -> int:
     C = snap.cache_lids.shape[0]
     print(f"snapshot: image {S} x {IW} words ({S * IW * 4} B), cache "
           f"{C} rows, {int((snap.cache_lids >= 0).sum())} cached LIDs")
-    flush = torch.empty(128 << 20, dtype=torch.int8, device=dev)
 
     def packed(keys):
         lanes, lens = pack_keys(keys, cfg.key_words)
@@ -415,14 +488,7 @@ def main() -> int:
     library_ms = device_ms([lambda c=c: lib_img.index_copy_(0, c[2], c[1])
                             for c in cases], 64, "index_copy", flush)
 
-    def clones():
-        for _ in range(8):
-            snap.image.clone()
-    clones()
-    events = device_events(clones)[0]
-    print_activities(events, "8 image clones")
-    clone_ms = sum(t for _, t in events) / 8 / 1e3
-    clone_event_ms = cuda_ms([snap.image.clone], 8)
+    clone_ms = image_clone_ms(snap.image)
     bound_ms = (D * IW * 4 + D * 4 + d * IW * 4) / HBM_BYTES_PER_S * 1e3
     print(f"row_scatter: equals its plain version and index_copy_ exactly "
           f"(tolerance 0); kernel {ms:.4f} ms device time for {D} rows ({d} "
@@ -430,22 +496,469 @@ def main() -> int:
           f"call through the wrapper back to back (plain {plain_ms:.4f} ms, "
           f"index_copy_ {library_ms:.4f} ms device time), bound "
           f"{bound_ms:.6f} ms; the per-delta image clone ({S * IW * 4} B "
-          f"each way) takes {clone_ms:.4f} ms device time, {clone_event_ms:.4f} "
-          f"ms per clone back to back by CUDA events")
+          f"each way) takes {clone_ms:.4f} ms per clone (CUDA events over "
+          f"32 back to back)")
     kernels.append({
         "name": "row_scatter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/row_scatter.cu",
         "replaces": "src/repro/kernels/delta_scatter.py:54",
         "launches": launches["row_scatter"], "max_abs_err": err, "ms": ms,
         "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes", "library_ms": library_ms})
+        "bound_by": "bytes", "library_ms": library_ms, "D": D})
+    return kernels, launches
 
-    print(card)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+
+def replay_case(S: int, d: int, offs, layout, gen) -> tuple:
+    """A log replay of ``d`` distinct records padded to a power of two with
+    repeats of the last one, as the feed pads them: up to three entries
+    per row at distinct slots, in shuffled order; row 7's old ``nlog``
+    (set by the caller) lies above every new slot."""
+    from repro_torch.core.config import bucket_pow2
+    D = bucket_pow2(d)
+    pool = torch.randperm(S - 8, generator=gen)[:(d + 2) // 3] + 8
+    pool[0] = 7
+    i = torch.arange(d)
+    order = torch.randperm(d, generator=gen)
+    rows = pool[i // 3][order].to(torch.int32)
+    slots = (i % 3)[order].to(torch.int32)
+    entries = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                            (d, layout.log_entry_words), generator=gen,
+                            dtype=torch.int32)
+    rows = torch.cat([rows, rows[-1:].expand(D - d)])
+    slots = torch.cat([slots, slots[-1:].expand(D - d)])
+    entries = torch.cat([entries, entries[-1:].expand(D - d, -1)])
+    return rows, slots, entries
+
+
+def replicated_path(args, dev, flush):
+    """The range-sharded, replicated store on the log-shipped feed: 2
+    shards x 3 replicas (``benchmarks/common.py:build_stores(shards=2,
+    replicas=3, replica_policy="round_robin", feed="log")``).  Load, full
+    export, update epochs (log-feed and natural fallback epochs), an
+    insert epoch, a GC epoch, a paused follower's catch-up, with every
+    follower image held against its primary after every flip and reads
+    from every replica held against a dict model; then the log-replay
+    kernel against its plain version, and the row scatter against its
+    plain version at two of the path's fallback deltas.  Returns the
+    log-replay ``kernels`` entry, the path's launch counts and the row
+    scatter's comparison (its deltas' sizes and max abs err)."""
+    from repro_torch.core import (FeedTopology, HoneycombConfig,
+                                  NodeImageLayout, ReplicationConfig,
+                                  ShardedHoneycombStore,
+                                  uniform_int_boundaries)
+    from repro_torch.core.config import bucket_pow2
+    from repro_torch.core.keys import int_key
+    from repro_torch.core.read_path import attach_cache_image
+    from repro_torch.kernels import build, delta_scatter, ops, ref
+
+    cfg = HoneycombConfig()
+    n = 1 << args.replicated_keys_log2
+    boundary = n // 2
+    rng = np.random.default_rng(args.seed + 1)
+    store = ShardedHoneycombStore(
+        cfg, shards=2, boundaries=uniform_int_boundaries(n, 2),
+        replication=ReplicationConfig(
+            replicas=3, policy="round_robin", feed="log",
+            topology=FeedTopology(fanout=2, depth=0)),
+        device="cuda")
+    groups = store.shards
+    model: dict[bytes, bytes] = {}
+    t0 = time.perf_counter()
+    for i in rng.permutation(n):
+        k, v = int_key(int(i)), value(int(i), 0)
+        store.put(k, v)
+        model[k] = v
+    load_s = time.perf_counter() - t0
+    # the load's splits leave old node versions behind; reclaim them now so
+    # that the GC epoch below frees only what the epochs left (a delta)
+    load_freed = [g.collect_garbage() for g in groups]
+    print(f"load: {n} puts in {load_s:.3f} s ({n / load_s:.0f} puts/s); "
+          f"GC freed {load_freed} node slots; per shard height "
+          f"{[g.tree.height for g in groups]}, heap capacity "
+          f"{[g.tree.heap.capacity for g in groups]} rows")
+
+    followers_checked = [0]
+
+    def check_followers(what: str) -> None:
+        """Every in-sync, unpaused follower that published the primary's
+        epoch holds the primary's image and cache tier bit for bit."""
+        for s, g in enumerate(groups):
+            p = g.primary._snapshot
+            for f in g.followers:
+                if f.paused or not f.in_sync or f.epoch != g.primary.epoch:
+                    continue
+                check(f.snapshot_rv == g.primary._snapshot_rv
+                      and torch.equal(f.snapshot.image, p.image)
+                      and torch.equal(f.snapshot.cache_image, p.cache_image)
+                      and torch.equal(f.snapshot.cache_lids, p.cache_lids),
+                      f"{what}: shard {s} follower {f.replica_id} differs "
+                      f"from its primary")
+                followers_checked[0] += 1
+
+    lat = {"get": [], "scan": []}
+    n_reads = {"get": 0, "scan": 0, "straddling": 0}
+
+    def read_phase(what: str, batches: int = 6) -> None:
+        """GET batches (hits and misses) and SCAN batches of 8-key ranges,
+        16 of each batch's ranges across the shard boundary, through the
+        router's round-robin picks; every answer against the model."""
+        keys_sorted = sorted(model)
+        for _ in range(batches):
+            keys = [int_key(int(x)) for x in
+                    rng.integers(0, n + n // 4, BATCH)]
+            t = time.perf_counter()
+            got = store.get_batch(keys)
+            lat["get"].append(time.perf_counter() - t)
+            for k, a in zip(keys, got):
+                check(a == model.get(k), f"{what}: GET {k!r}: {a!r}")
+            los = [boundary - int(x) for x in
+                   rng.integers(1, SCAN_ITEMS, 16)]
+            los += [int(x) for x in rng.integers(0, n, BATCH - 16)]
+            ranges = [(int_key(a), int_key(a + SCAN_ITEMS - 1)) for a in los]
+            t = time.perf_counter()
+            got = store.scan_batch(ranges)
+            lat["scan"].append(time.perf_counter() - t)
+            for (lo, hi), a in zip(ranges, got):
+                check(a == model_scan(keys_sorted, model, lo, hi),
+                      f"{what}: SCAN {lo!r}..{hi!r}")
+            n_reads["get"] += BATCH
+            n_reads["scan"] += BATCH
+            n_reads["straddling"] += 16
+
+    epochs = []            # (label, per-shard feed kind, host ms, D list)
+    # fallback deltas kept to hold the row scatter against its plain
+    # version after the main path: (label, shard, delta, follower image
+    # before the delta, follower image after it)
+    kept_deltas = []
+
+    def epoch(label: str, keep_delta: bool = False) -> None:
+        """One export of the writes made since the last one (staging, then
+        flip); classify each shard's staging by the feed it took, and hold
+        the follower log replays with entries it caused against the
+        kernel's launches.  With ``keep_delta`` each fallback shard's
+        staged delta is kept, with follower 1's images around it."""
+        fs0 = [dataclasses.replace(g.feed_stats) for g in groups]
+        st0 = [[dataclasses.replace(f.sync_stats) for f in g.followers]
+               for g in groups]
+        lr0 = build.LAUNCHES["log_replay"]
+        t = time.perf_counter()
+        store.begin_export()
+        staged = [(g.primary.last_staged, g.followers[0].snapshot)
+                  for g in groups]
+        store.flip()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        kinds, sizes = [], []
+        for s, (g, fs, sts) in enumerate(zip(groups, fs0, st0)):
+            f1 = g.feed_stats
+            kinds.append("log" if f1.log_feed_epochs > fs.log_feed_epochs
+                         else "fallback"
+                         if f1.log_fallback_epochs > fs.log_fallback_epochs
+                         else "full" if f1.full_feed_epochs
+                         > fs.full_feed_epochs else "clean")
+            # a replay of zero entries (a forced, empty epoch) launches
+            # nothing: count the replays whose entries grew
+            for f, s0 in zip(g.followers, sts):
+                grew = f.sync_stats.log_entries - s0.log_entries
+                if f.sync_stats.log_replays > s0.log_replays and grew:
+                    sizes.append(bucket_pow2(grew))
+            payload, before = staged[s]
+            if keep_delta and kinds[-1] == "fallback":
+                check(payload.delta is not None,
+                      f"{label}: shard {s} fell back without a delta")
+                kept_deltas.append((label, s, payload.delta, before.image,
+                                    g.followers[0].snapshot.image))
+        check(build.LAUNCHES["log_replay"] - lr0 == len(sizes),
+              f"{label}: {build.LAUNCHES['log_replay'] - lr0} log_replay "
+              f"launches for {len(sizes)} follower log replays with entries")
+        epochs.append((label, kinds, ms, sizes))
+        check_followers(label)
+
+    def update(i: int, gen: int) -> None:
+        k, v = int_key(i), value(i, gen)
+        store.update(k, v)
+        model[k] = v
+
+    # ---- the main path, every launch count set to 0 just before it -------
+    build.reset_launches()
+    ops.reset_read_dispatches()
+    t0 = time.perf_counter()
+    store.export_snapshot()
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    check_followers("full export")
+    imgs = [(g.primary._snapshot.image, [f.snapshot.image
+                                         for f in g.followers])
+            for g in groups]
+    print(f"full export {full_s * 1e3:.3f} ms; resident images: "
+          + "; ".join(f"shard {s}: {1 + len(fs)} x {tuple(p.shape)} "
+                      f"({p.nbytes} B each)"
+                      for s, (p, fs) in enumerate(imgs)))
+    read_phase("after the load")
+    gen = 1
+    for e in range(EPOCHS):
+        for i in rng.integers(0, n, EPOCH_WRITES):
+            update(int(i), gen)
+            gen += 1
+        # keep the first fallback epoch's deltas (a few dirty leaves)
+        epoch(f"update epoch {e}", keep_delta=not kept_deltas)
+        if (e + 1) % 16 == 0:
+            read_phase(f"after update epoch {e}", batches=2)
+    per_shard = [[sum(1 for _, k, _, _ in epochs if k[s] == kind)
+                  for kind in ("log", "fallback")] for s in range(2)]
+    print(f"{EPOCHS} epochs of {EPOCH_WRITES} updates: per shard "
+          f"[log-feed, fallback] epochs {per_shard}")
+    for s, (n_log, _) in enumerate(per_shard):
+        check(n_log >= 16, f"shard {s}: only {n_log} log-feed epochs")
+    fb0 = [g.feed_stats.log_fallback_epochs for g in groups]
+    for i in rng.integers(0, n, 200):            # splits: a fallback epoch
+        k, v = int_key(int(i)) + b"\x01", value(int(i), gen)
+        store.put(k, v)
+        model[k] = v
+        gen += 1
+    epoch("insert epoch", keep_delta=True)
+    print(f"insert epoch of 200 new keys fed {epochs[-1][1]}")
+    check("fallback" in epochs[-1][1], f"insert epoch fed {epochs[-1][1]}")
+    read_phase("after the insert epoch", batches=2)
+    for i in rng.integers(0, n, EPOCH_WRITES):
+        update(int(i), gen)
+        gen += 1
+    freed = [g.collect_garbage() for g in groups]
+    epoch("GC epoch")
+    print(f"GC epoch: {freed} node slots freed per shard, fed "
+          f"{epochs[-1][1]}")
+    check(sum(freed) > 0, "GC freed nothing")
+    for s, (nf, kind) in enumerate(zip(freed, epochs[-1][1])):
+        check(kind != "log" or not nf, f"GC epoch on shard {s} fed {kind}")
+    read_phase("after the GC epoch", batches=2)
+    g0 = groups[0]
+    g0.pause_follower(2)
+    for i in rng.integers(0, boundary, EPOCH_WRITES):   # shard 0
+        update(int(i), gen)
+        gen += 1
+    epoch("paused epoch")
+    check(g0.replica_lag_epochs[1] >= 1 and 2 not in g0.eligible_replicas(),
+          f"paused follower lag {g0.replica_lag_epochs}")
+    read_phase("with a paused follower", batches=2)
+    g0.resume_follower(2)
+    catch0 = g0.feed_stats.full_catchups
+    for i in rng.integers(0, boundary, EPOCH_WRITES):
+        update(int(i), gen)
+        gen += 1
+    epoch("catch-up epoch")
+    check(g0.feed_stats.full_catchups == catch0 + 1
+          and g0.replica_lag_epochs == [0, 0],
+          f"catch-up: {g0.feed_stats}, lag {g0.replica_lag_epochs}")
+    read_phase("after the catch-up", batches=4)
+    launches = dict(build.LAUNCHES)
+    dispatches = ops.read_dispatch_stats()
+
+    # ---- counts ----------------------------------------------------------
+    fol = [f for g in groups for f in g.followers]
+    replays = sum(f.sync_stats.log_replays for f in fol)
+    replays_with_entries = sum(len(ds) for _, _, _, ds in epochs)
+    applies = sum(s.delta_syncs for g in groups
+                  for s in g.per_replica_sync_stats)
+    check(launches["log_replay"] == replays_with_entries,
+          f"log_replay launches {launches} vs {replays_with_entries} "
+          f"follower replays with entries")
+    check(launches["row_scatter"] == applies,
+          f"row_scatter launches {launches} vs {applies} delta applies")
+    check(launches["fused_get"] == dispatches["get_fused"]["batches"]
+          and launches["fused_scan"] == dispatches["scan_fused"]["batches"],
+          f"fused launches {launches} vs read dispatches {dispatches}")
+
+    # ---- the row scatter against its plain version, at this path's deltas -
+    # (after the counts were read: these launches are not the main path's)
+    check(any(label == "insert epoch" for label, *_ in kept_deltas)
+          and any(label != "insert epoch" for label, *_ in kept_deltas),
+          f"kept fallback deltas {[x[:2] for x in kept_deltas]}")
+    scatter = {"D": [], "max_abs_err": 0}
+    for label, s, delta, before, after in kept_deltas:
+        want = ref.snapshot_image_scatter_ref(before.clone(), delta.rows,
+                                              delta.image)
+        got = delta_scatter.snapshot_image_scatter(before.clone(),
+                                                   delta.rows, delta.image)
+        e = max_abs_err([want, want], [got, after])
+        check(e == 0, f"row_scatter on the {label}'s shard {s} delta "
+              f"(D={delta.rows.numel()}): kernel, plain version and the "
+              f"follower's published image differ (max abs err {e})")
+        scatter["D"].append(delta.rows.numel())
+        scatter["max_abs_err"] = max(scatter["max_abs_err"], e)
+    print(f"row_scatter on the replicated path's fallback deltas "
+          f"({', '.join(f'{label} shard {s}' for label, s, *_ in kept_deltas)}"
+          f"): D = {scatter['D']}; kernel equals its plain version and the "
+          f"follower's published image exactly (tolerance 0)")
+    del kept_deltas[:]
+    ops_by = store.per_shard_replica_ops
+    check(all(r > 0 for o in ops_by for r in o),
+          f"round robin left a replica idle: {ops_by}")
+    print(f"checked {n_reads['get']} GETs and {n_reads['scan']} SCANs "
+          f"({n_reads['straddling']} across the shard boundary) against the "
+          f"model; {followers_checked[0]} follower flips bit-identical to "
+          f"their primary")
+    print(f"  launches {launches}; read dispatches {dispatches}")
+    print(f"  requests served per replica (primary first), per shard "
+          f"{ops_by}; lagging skips {store.lagging_skips}")
+    for s, g in enumerate(groups):
+        print(f"  shard {s} {g.feed_stats}")
+        print(f"  shard {s} follower SyncStats "
+              f"{[f.sync_stats for f in g.followers]}")
+    fs = store.feed_stats
+    n_fallback_applies = sum(f.sync_stats.delta_syncs for f in fol)
+    print(f"  feed bytes per follower per epoch: log "
+          f"{fs.log_bytes / max(replays, 1):.1f} B over {replays} "
+          f"replays, fallback {fs.fallback_bytes / max(n_fallback_applies, 1):.1f}"
+          f" B over {n_fallback_applies} delta applies, catch-up "
+          f"{fs.catchup_bytes} B over {fs.full_catchups}")
+    # an epoch is a fallback epoch when any shard fell back, else a log
+    # epoch when every staged shard replayed its log
+    for kind, xs in (("log", [ms for _, k, ms, _ in epochs
+                              if "log" in k and "fallback" not in k]),
+                     ("fallback", [ms for _, k, ms, _ in epochs
+                                   if "fallback" in k])):
+        print(f"  sync (export_snapshot, host clock) of a {kind} epoch: "
+              f"median {statistics.median(xs):.3f} ms, max {max(xs):.3f} "
+              f"ms over {len(xs)} epochs")
+    for op in ("get", "scan"):
+        xs = sorted(lat[op])
+        print(f"  {op} batch of {BATCH} through the router (round robin, "
+              f"host clock): median {statistics.median(xs) * 1e3:.3f} ms")
+
+    # ---- reads pinned to the primary vs to a follower ---------------------
+    keys = [[int_key(int(x)) for x in rng.integers(0, n, BATCH)]
+            for _ in range(8)]
+    ranges = [[(int_key(int(a)), int_key(int(a) + SCAN_ITEMS - 1))
+               for a in rng.integers(0, n, BATCH)] for _ in range(8)]
+    keys_sorted = sorted(model)
+    for r in (0, 1, 2):
+        ts = {"get": [], "scan": []}
+        for ks, rs in zip(keys, ranges):
+            t = time.perf_counter()
+            got = store.get_batch(ks, replica=r)
+            ts["get"].append(time.perf_counter() - t)
+            check(got == [model.get(k) for k in ks]
+                  and all(g.last_dispatch[0] == r for g in groups),
+                  f"GET pinned to replica {r}")
+            t = time.perf_counter()
+            got = store.scan_batch(rs, replica=r)
+            ts["scan"].append(time.perf_counter() - t)
+            check(got == [model_scan(keys_sorted, model, lo, hi)
+                          for lo, hi in rs], f"SCAN pinned to replica {r}")
+        print(f"  replica {r} ({'primary' if r == 0 else 'follower'}): GET "
+              f"batch median {statistics.median(ts['get']) * 1e3:.3f} ms, "
+              f"SCAN batch median {statistics.median(ts['scan']) * 1e3:.3f} "
+              f"ms (host clock, 8 batches each)")
+
+    # ---- where one log epoch's time goes ---------------------------------
+    # shard 0 only, a few updates, until its staging replays the log; the
+    # staging (primary delta apply, then each follower's clone, replay and
+    # cache re-attach) is traced, then the host marshal and one cache
+    # re-attach are timed alone on the staged payload
+    for attempt in range(10):
+        for i in rng.integers(0, boundary, 2):
+            update(int(i), gen)
+            gen += 1
+        n_log = g0.feed_stats.log_feed_epochs
+        events = device_events(g0.begin_export)[0]
+        if g0.feed_stats.log_feed_epochs > n_log:
+            break
+        g0.flip()
+    lp = g0.primary.last_staged.log_payload
+    if lp is None:
+        print("log epoch breakdown: no log epoch in 10 tries")
+    else:
+        t = time.perf_counter()
+        g0._marshal_log_payload(lp)
+        torch.cuda.synchronize()
+        marshal_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        attach_cache_image(g0.followers[0]._standby, cfg)
+        torch.cuda.synchronize()
+        attach_ms = (time.perf_counter() - t) * 1e3
+        busy_us = sum(u for _, u in events)
+        print(f"log epoch breakdown (shard 0, {lp.entries} entries, 2 "
+              f"followers): {busy_us:.1f} us of device activity in the "
+              f"traced staging; host marshal of the payload alone "
+              f"{marshal_ms:.3f} ms, one follower cache re-attach alone "
+              f"{attach_ms:.3f} ms (host clock, synchronized)")
+        print_activities(events, "log epoch staging", top=8)
+    g0.flip()
+    check_followers("the traced epoch")
+
+    # ---- the log-replay kernel against its plain version -----------------
+    layout = NodeImageLayout.for_config(cfg)
+    offs = layout.log_replay_offsets()
+    base = groups[0].followers[0].snapshot.image
+    S, IW = base.shape
+    gen_t = torch.Generator(device="cpu").manual_seed(args.seed)
+    err = 0
+    for d in (29, 1000):
+        rows, slots, entries = (x.to(dev) for x in
+                                replay_case(S, d, offs, layout, gen_t))
+        img = base.clone()
+        img[7, offs.nlog] = offs.log_cap
+        want = ref.log_replay_scatter_ref(img.clone(), rows, slots, entries,
+                                          offs=offs)
+        got = delta_scatter.log_replay_scatter(img, rows, slots, entries,
+                                               offs=offs)
+        e = max_abs_err([want], [got])
+        check(e == 0 and int(got[7, offs.nlog]) == 3,
+              f"log_replay D={len(rows)}: kernel differs from plain "
+              f"(max abs err {e})")
+        err = max(err, e)
+    all_sizes = [d for _, _, _, ds in epochs for d in ds]
+    D = statistics.mode(all_sizes)
+    print(f"log_replay: equals its plain version exactly (tolerance 0) at "
+          f"[{S}, {IW}] for D = 32 and 1024 (several entries per row, an "
+          f"old nlog above the new slots); the main path replayed D = "
+          f"{dict(sorted(collections.Counter(all_sizes).items()))} "
+          f"(padded entries: launches)")
+    cases = [tuple(x.to(dev) for x in replay_case(S, max(D - 1, 1), offs,
+                                                  layout, gen_t))
+             for _ in range(ROTATE)]
+    work = base.clone()
+    calls = [lambda c=c: delta_scatter.log_replay_scatter(
+        work, *c, offs=offs) for c in cases]
+    ms = device_ms(calls, 64, "log_replay_kernel", flush, min_traced=0.9)
+    wrapper_ms = cuda_ms(calls, 200)
+    plain_ms = cuda_ms([lambda c=c: ref.log_replay_scatter_ref(
+        work, *c, offs=offs) for c in cases], 50)
+    EW = layout.log_entry_words
+    # the field words' flat indices, precomputed: index_put_ covers the
+    # field writes only, not the per-row nlog reduction
+    kw, vw = offs.key_words, offs.val_words
+    fields = ([offs.log_keys + w for w in range(kw)] + [offs.log_keylen]
+              + [offs.log_vals + w for w in range(vw)]
+              + [offs.log_vallen, offs.log_op, offs.log_backptr,
+                 offs.log_hint, offs.log_vdelta])
+    width = [kw] * kw + [1] + [vw] * vw + [1] * 5
+    fo = torch.tensor(fields, device=dev, dtype=torch.long)
+    fw = torch.tensor(width, device=dev, dtype=torch.long)
+    flat = work.view(-1)
+    puts = [((c[0].long()[:, None] * IW + fo[None, :]
+              + c[1].long()[:, None] * fw[None, :]).reshape(-1),
+             c[2].reshape(-1)) for c in cases]
+    yard_ms = device_ms(
+        [lambda p=p: flat.index_put_((p[0],), p[1]) for p in puts], 64,
+        "index_elementwise_kernel", flush, min_traced=0.9)
+    bound_ms = D * (EW * 4 * 2 + 4 + 8) / HBM_BYTES_PER_S * 1e3
+    clone_ms = image_clone_ms(base)
+    print(f"log_replay: kernel {ms:.4f} ms device time for D = {D} entries "
+          f"(L2 flushed), {wrapper_ms:.4f} ms per call through the wrapper "
+          f"back to back (plain {plain_ms:.4f} ms), bound {bound_ms:.9f} ms "
+          f"({D * (EW * 8 + 12)} B); partial yardstick index_put_ over the "
+          f"precomputed field-word indices (no nlog) {yard_ms:.4f} ms device "
+          f"time; the follower image clone before each replay ({S * IW * 4} "
+          f"B each way) {clone_ms:.4f} ms per clone (CUDA events over 32 back "
+          f"to back)")
+    return ({"name": "log_replay", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/log_replay.cu",
+             "replaces": "src/repro/kernels/delta_scatter.py:127",
+             "launches": launches["log_replay"], "max_abs_err": err,
+             "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+             "index_put_ms": yard_ms, "D": D}, launches, scatter)
 
 
 if __name__ == "__main__":

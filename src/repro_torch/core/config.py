@@ -15,8 +15,10 @@ Mirrors the paper's node geometry (Section 3.1) as fixed-width slots:
   5 B version delta             32-bit delta; wrap forces a merge, same as
                                 the paper's wrap-forces-merge rule
 
-Only ``HoneycombConfig`` and ``bucket_pow2`` are ported so far; the
-service, replication and sharding configs come with those layers.
+Ported so far: ``HoneycombConfig``, ``bucket_pow2``, the range-sharding
+config and the replication configs (feeds, relay topology, read-spreading
+policies).  The service and telemetry configs come with the service
+layer.
 """
 from __future__ import annotations
 
@@ -128,3 +130,129 @@ class HoneycombConfig:
     def max_inline_val_bytes(self) -> int:
         return self.val_words * 4
 
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """Range partition of the keyspace for ``ShardedHoneycombStore``.
+
+    ``boundaries`` are ``shards - 1`` strictly ascending byte-string split
+    points; shard ``i`` owns keys in ``[boundaries[i-1], boundaries[i])``
+    (shard 0 is unbounded below, the last shard unbounded above).  ``None``
+    defaults to a uniform split of the 8-byte big-endian integer keyspace.
+    """
+    shards: int = 1
+    boundaries: tuple[bytes, ...] | None = None
+
+    def __post_init__(self):
+        assert self.shards >= 1, "need at least one shard"
+        if self.boundaries is not None:
+            b = self.boundaries
+            assert len(b) == self.shards - 1, (
+                f"{self.shards} shards need {self.shards - 1} boundaries, "
+                f"got {len(b)}")
+            assert all(x < y for x, y in zip(b, b[1:])), (
+                "shard boundaries must be strictly ascending")
+
+
+# follower feed paths for replicated shards (core/replica.py):
+#   "log"   — ship each sync epoch's op wire stream (core/api.py codec) once
+#             and replay it on device with the log_replay_scatter kernel;
+#             epochs whose tree shape changed fall back to the image delta.
+#   "delta" — ship the primary's dirty-row image delta to every follower
+#             (the pre-log feed, kept as the byte-accounting reference).
+REPLICA_FEEDS = ("log", "delta")
+
+
+@dataclasses.dataclass(frozen=True)
+class FeedTopology:
+    """Relay tree for the replication feed (core/replica.py).
+
+    ``depth == 0`` is the flat feed: the primary ships every staged payload
+    directly to each follower, so feeder egress is O(replicas).  With
+    ``depth >= 1`` followers are arranged level by level under the primary —
+    up to ``fanout`` first-level relays, ``fanout**2`` second-level nodes,
+    and so on, with the final level absorbing any remainder round-robin —
+    so the primary's egress is O(fanout) and each relay forwards the SAME
+    encoded payload downstream (the architecture of "Reliable Replication
+    Protocols on SmartNICs", PAPERS.md).  A paused relay cuts off its
+    subtree: descendants miss the payload, fall out of sync, and take a
+    full-image catch-up from the primary once the path is live again.
+    """
+    fanout: int = 2
+    depth: int = 0
+
+    def __post_init__(self):
+        assert self.fanout >= 1, "relay fanout must be >= 1"
+        assert self.depth >= 0, "relay depth must be >= 0"
+
+    def parents(self, n_followers: int) -> dict[int, int]:
+        """Map follower replica id (1..n) -> feeding parent replica id
+        (0 = primary).  Levels 1..depth-1 take ``fanout`` children per
+        parent in id order; the last level absorbs every remaining
+        follower, spread round-robin over the level above."""
+        ids = list(range(1, n_followers + 1))
+        if self.depth == 0:
+            return {i: 0 for i in ids}
+        parents: dict[int, int] = {}
+        prev_level = [0]
+        pos = 0
+        for level in range(1, self.depth + 1):
+            remaining = len(ids) - pos
+            if remaining <= 0:
+                break
+            cap = len(prev_level) * self.fanout
+            take = remaining if level == self.depth else min(remaining, cap)
+            this_level = ids[pos:pos + take]
+            for idx, i in enumerate(this_level):
+                if take <= cap:
+                    parents[i] = prev_level[idx // self.fanout]
+                else:        # final level overflow: spread round-robin
+                    parents[i] = prev_level[idx % len(prev_level)]
+            prev_level = this_level
+            pos += take
+        return parents
+
+
+# read-spreading policies for replicated shards (core/replica.py):
+#   "primary_only" — every read serves from the primary (replication off the
+#                    read path; the replicas=1 equivalence baseline);
+#   "round_robin"  — dispatched read batches rotate over the replica set;
+#   "least_loaded" — each batch goes to the replica that has served the
+#                    fewest requests so far.
+REPLICA_POLICIES = ("primary_only", "round_robin", "least_loaded")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicationConfig:
+    """Replica set for each shard of a ``ShardedHoneycombStore``.
+
+    ``replicas`` counts SERVING copies per shard (primary + followers), so
+    ``replicas=1`` means no followers — the configuration that is
+    operation-for-operation identical to the unreplicated store, including
+    sync byte counts (held to the reference by
+    tests/test_torch_replication.py).  Followers hold
+    their own device-resident snapshot fed only by the primary's delta
+    stream (core/replica.py); ``policy`` picks how the router spreads read
+    batches over the replica set (writes always go to the primary).
+
+    ``feed`` selects the follower transport: ``"log"`` (default) ships each
+    epoch's encoded op stream once and replays it on device, falling back
+    per-epoch to the image delta when the tree shape changed; ``"delta"``
+    is the pre-log dirty-row image feed.  ``topology`` arranges followers
+    into a relay tree (see ``FeedTopology``) so feeder egress scales with
+    the fanout, not the replica count.
+    """
+    replicas: int = 1
+    policy: str = "primary_only"
+    feed: str = "log"
+    topology: FeedTopology = FeedTopology()
+
+    def __post_init__(self):
+        assert self.replicas >= 1, "need at least the primary replica"
+        assert self.policy in REPLICA_POLICIES, (
+            f"unknown replica policy {self.policy!r} "
+            f"(one of {REPLICA_POLICIES})")
+        assert self.feed in REPLICA_FEEDS, (
+            f"unknown replica feed {self.feed!r} (one of {REPLICA_FEEDS})")
+        assert isinstance(self.topology, FeedTopology), (
+            "topology must be a FeedTopology")

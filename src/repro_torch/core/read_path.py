@@ -125,8 +125,8 @@ def apply_snapshot_delta(snap: TreeSnapshot, delta: SnapshotDelta, *,
     kernel on CUDA) patches the clone in place; the clone moves S·IW·4
     bytes each way and dwarfs the scatter.  With ``cfg`` the cache tier is
     rebuilt from the patched image; without it the cache image is dropped
-    (fused reads then fall back to the reference path) rather than served
-    stale."""
+    rather than served stale, and a fused read of such a snapshot raises
+    (``kernels/ops.py``); the reference read path still serves it."""
     from ..kernels import ops  # deferred: kernels.ref imports this module
     image = snap.image.clone()
     ops.snapshot_image_scatter(image, delta.rows, delta.image)

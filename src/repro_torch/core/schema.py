@@ -27,10 +27,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 
 from .config import HoneycombConfig
+from .keys import pack_key
 
 _NULL = -1   # matches heap.NULL: "no slot / no sibling / no old version"
 
@@ -133,13 +135,6 @@ class NodeImageLayout:
         """{field: (word_offset, words)}."""
         return {n: (s.offset, s.words) for n, s in self.slots.items()}
 
-    @property
-    def log_entry_words(self) -> int:
-        """u32 words per marshalled log entry of the replication feed: key
-        lanes + keylen + value lanes + vallen + op + backptr + hint +
-        vdelta."""
-        return self.cfg.key_words + self.cfg.val_words + 6
-
     # ---------------------------------------------------------- host side
     def pack(self, heap, rows: np.ndarray | None = None) -> np.ndarray:
         """Marshal heap rows into contiguous node images: [D, image_words]
@@ -181,3 +176,94 @@ class NodeImageLayout:
     def field_views(self, image) -> dict[str, object]:
         """All field views of a device image (snapshot adapter)."""
         return {name: self.view(image, name) for name in self.slots}
+
+    # -------------------------------------------- log-replay addressing
+    # One decoded wire op + its placement sidecar marshal into a dense
+    # log_entry_words-u32 record; the log_replay_scatter kernel
+    # (kernels/csrc/log_replay.cu) scatters each record into its node's
+    # image row at these static offsets + slot * field width — the
+    # entry->row address map of the log-shipped replication feed.
+
+    @property
+    def log_entry_words(self) -> int:
+        """u32 words per marshalled log entry: key lanes + keylen + value
+        lanes + vallen + op + backptr + hint + vdelta."""
+        return self.cfg.key_words + self.cfg.val_words + 6
+
+    def log_replay_offsets(self) -> "LogReplayOffsets":
+        """Static image-row word offsets the replay kernel scatters to (a
+        hashable tuple of ints, equal to the reference's)."""
+        s = self.slots
+        return LogReplayOffsets(
+            key_words=self.cfg.key_words,
+            val_words=self.cfg.val_words,
+            nlog=s["nlog"].offset,
+            log_keys=s["log_keys"].offset,
+            log_keylen=s["log_keylen"].offset,
+            log_vals=s["log_vals"].offset,
+            log_vallen=s["log_vallen"].offset,
+            log_op=s["log_op"].offset,
+            log_backptr=s["log_backptr"].offset,
+            log_hint=s["log_hint"].offset,
+            log_vdelta=s["log_vdelta"].offset)
+
+    def pack_log_entries(self, ops, op_codes, backptrs, hints,
+                         vdeltas) -> np.ndarray:
+        """Marshal decoded wire ops + placement sidecar into the dense
+        ``[E, log_entry_words]`` u32 block the replay kernel consumes.
+
+        Key and inline-value lanes are packed exactly like the host write
+        path (big-endian u32 lanes, zero padded; ``core/keys.pack_key`` /
+        ``HoneycombTree._store_value``), and the narrow int sidecar fields
+        cross as their int32 bit pattern — the same narrowing ``pack()``
+        applies — so a replayed row is bit-identical to the primary's
+        packed row.  Values longer than the inline budget never reach
+        here: such epochs are not replayable (core/shard.py falls back to
+        the image delta)."""
+        cfg = self.cfg
+        kw, vw = cfg.key_words, cfg.val_words
+        blk = np.zeros((len(ops), self.log_entry_words), np.uint32)
+        for i, op in enumerate(ops):
+            key = op.key
+            val = getattr(op, "value", b"")
+            assert len(val) <= cfg.max_inline_val_bytes, (
+                "overflow-length value in a log-replay payload")
+            blk[i, 0:kw] = pack_key(key, kw)
+            blk[i, kw] = len(key)
+            if val:
+                buf = val + b"\x00" * (-len(val) % 4)
+                lanes = np.frombuffer(buf, dtype=">u4")
+                blk[i, kw + 1:kw + 1 + len(lanes)] = lanes
+            blk[i, kw + 1 + vw] = len(val)
+        blk[:, kw + vw + 2] = np.asarray(op_codes, np.int64) \
+            .astype(np.int32).view(np.uint32)
+        blk[:, kw + vw + 3] = np.asarray(backptrs, np.int64) \
+            .astype(np.int32).view(np.uint32)
+        blk[:, kw + vw + 4] = np.asarray(hints, np.int64) \
+            .astype(np.int32).view(np.uint32)
+        blk[:, kw + vw + 5] = np.asarray(vdeltas, np.int64) \
+            .astype(np.int32).view(np.uint32)
+        return blk
+
+
+class LogReplayOffsets(NamedTuple):
+    """Static layout constants of one log-replay scatter (all ints, so the
+    tuple is hashable).  ``log_*``/``nlog`` are image-row word offsets;
+    per-slot fields advance by their width per log slot."""
+    key_words: int
+    val_words: int
+    nlog: int
+    log_keys: int
+    log_keylen: int
+    log_vals: int
+    log_vallen: int
+    log_op: int
+    log_backptr: int
+    log_hint: int
+    log_vdelta: int
+
+    @property
+    def log_cap(self) -> int:
+        """Log slots per node: the ``log_keys`` field holds ``log_cap``
+        keys of ``key_words`` lanes and ends where ``log_keylen`` begins."""
+        return (self.log_keylen - self.log_keys) // self.key_words

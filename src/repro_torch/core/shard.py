@@ -29,12 +29,19 @@ resident device snapshot kept in sync by the incremental delta subsystem:
 Every snapshot tensor lives on ``device`` (``"cuda"`` unless the caller
 asks for the CPU).  Publishing copies host arrays explicitly:
 ``torch.from_numpy`` aliases numpy memory, and an aliased snapshot would
-see later host mutations.  Not ported yet: the legacy per-field layout
-(raises), the log-shipped replication feed (setting ``log_capture``
-raises), the service ``routing()`` accessor and the EpochSan seams.
+see later host mutations.
+
+For the log-shipped replication feed (core/replica.py) a replica group
+sets ``log_capture``: every write is then captured with its fast-path
+placement, and a delta staging whose writes all took the leaf fast path
+carries them as one ``LogPayload`` (the op wire stream plus a placement
+sidecar) that followers replay on the device.  Not ported yet: the legacy
+per-field layout (raises), the service ``routing()`` accessor and the
+EpochSan seams.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Sequence
 
@@ -42,7 +49,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kernel_ops
-from .api import wire_entry_nbytes
+from .api import OPS_BY_KIND, Delete, wire_entry_nbytes
 from .btree import HoneycombTree
 from .cache import InteriorCache
 from .config import HoneycombConfig, bucket_pow2
@@ -72,8 +79,9 @@ class SyncStats:
     image_dma_count: int = 0      # node-image copies: ONE per dirty node on
     #   a delta, one per whole image on a full publish
     image_bytes: int = 0          # node-image payload bytes
-    log_replays: int = 0          # follower stagings replayed from the op
-    #   log (replication; always 0 until that layer is ported)
+    log_replays: int = 0          # follower stagings applied by replaying
+    #   the epoch's op wire stream on the device (log_replay_scatter)
+    #   instead of re-issuing the primary's image rows
 
     def merge(self, other: "SyncStats"):
         """Accumulate another shard's counters (aggregation)."""
@@ -95,12 +103,18 @@ class SyncStats:
 @dataclasses.dataclass
 class StagedSync:
     """One ``begin_export`` staging as it crossed the bus — the unit a
-    follower replica will replay.  ``kind`` is "full" or "delta";
-    ``delta`` is the staged ``SnapshotDelta`` (None for full publishes);
-    ``snapshot`` is the staged standby; ``nbytes`` the metered traffic and
-    ``delta_rows`` the unpadded dirty-row count; ``read_version`` is what
-    the standby answers at once flipped.  ``log_payload`` stays None until
-    the log-shipped feed is ported."""
+    follower replica replays (core/replica.py).  ``kind`` is "full" or
+    "delta"; ``delta`` is the staged ``SnapshotDelta`` (None for full
+    publishes); ``snapshot`` is the staged standby, which doubles as the
+    catch-up source for followers that fell out of sync; ``nbytes`` the
+    metered traffic and ``delta_rows`` the unpadded dirty-row count;
+    ``image_dmas``/``image_bytes`` the staging's node-image copies and
+    bytes (what each follower delta apply repeats); ``read_version`` is
+    what the standby answers at once flipped.  ``log_payload`` is present
+    iff log capture is on and the epoch is replayable (every write took
+    the leaf fast path: no split/merge/GC/page-table move/overflow value);
+    None means followers take the image delta, the metered per-epoch
+    fallback."""
     kind: str
     snapshot: TreeSnapshot
     delta: SnapshotDelta | None
@@ -114,16 +128,21 @@ class StagedSync:
 
 @dataclasses.dataclass
 class LogPayload:
-    """One sync epoch's writes encoded once for every follower lane: the
-    op wire stream plus each write's fast-path placement (row, log slot,
-    backptr, order hint, version delta).  Produced by the log-shipped
-    replication feed, which is not ported yet."""
+    """One sync epoch's writes, encoded ONCE for every follower lane.
+
+    ``wire`` is the op stream in the exact core/api.py wire format
+    (``len(wire)`` equals the epoch's ``SyncStats.log_wire_bytes``
+    growth).  The sidecar vectors carry each write's fast-path placement —
+    physical leaf row, log slot, backptr, order hint, version delta — which
+    the primary derived from its pre-epoch tree, so a follower needs no
+    host tree and replay is a pure device scatter.  ``nbytes`` is what one
+    follower edge moves: wire + sidecar."""
     wire: bytes
-    rows: np.ndarray
-    slots: np.ndarray
-    backptrs: np.ndarray
-    hints: np.ndarray
-    vdeltas: np.ndarray
+    rows: np.ndarray          # [E] int32 physical leaf slot per entry
+    slots: np.ndarray         # [E] int32 log slot index per entry
+    backptrs: np.ndarray      # [E] int32 sorted-block back pointers
+    hints: np.ndarray         # [E] int32 log order hints
+    vdeltas: np.ndarray       # [E] int64 version deltas (narrow on device)
     entries: int
     read_version: int
     wire_nbytes: int
@@ -159,6 +178,7 @@ class StoreShard:
         self._snapshot: TreeSnapshot | None = None
         self._snapshot_dirty = True
         self._writes_since_sync = 0
+        self._sync_deferred = False
         # counter watermarks so multi-sync runs accumulate (not overwrite)
         self._pt_commands_seen = 0
         self._rv_updates_seen = 0
@@ -184,6 +204,16 @@ class StoreShard:
         self.on_staged: Callable[[StagedSync], None] | None = None
         self.on_flip: Callable[[], None] | None = None
         self._staged_delta: SnapshotDelta | None = None
+        # log-shipped feed capture (core/replica.py sets log_capture when
+        # followers ride the "log" feed; the unreplicated store pays one
+        # bool check per write).  The epoch log holds (op, placement) per
+        # write since the last staging; any write that missed the leaf
+        # fast path — or carried an overflow-length value, or a GC pass —
+        # poisons the epoch, and its staging falls back to the image delta.
+        self.log_capture = False
+        self._epoch_log: list = []
+        self._epoch_replayable = True
+        self._staged_pt_cmds = 0
         # device SCANs truncated by the leaf/slot budget, answered by the
         # host tree instead
         self.scan_fallbacks = 0
@@ -191,36 +221,55 @@ class StoreShard:
     # ------------------------------------------------------------- writes
     def put(self, key: bytes, value: bytes, thread: int = 0):
         self.tree.put(key, value, thread)
-        self._note_write(key, value)
+        self._note_write(key, value, "put")
 
     def update(self, key: bytes, value: bytes, thread: int = 0):
         self.tree.update(key, value, thread)
-        self._note_write(key, value)
+        self._note_write(key, value, "update")
 
     def delete(self, key: bytes, thread: int = 0):
         self.tree.delete(key, thread)
-        self._note_write(key, b"")
+        self._note_write(key, b"", "delete")
 
-    @property
-    def log_capture(self) -> bool:
-        """Whether writes are captured for the log-shipped replication
-        feed; always False until that feed is ported."""
-        return False
-
-    @log_capture.setter
-    def log_capture(self, on: bool):
-        if on:
-            raise NotImplementedError(
-                "the log-shipped replication feed is not ported")
-
-    def _note_write(self, key: bytes, value: bytes):
+    def _note_write(self, key: bytes, value: bytes, kind: str = "put"):
         self._snapshot_dirty = True
         self._writes_since_sync += 1
         self.sync_stats.log_entries += 1
         self.sync_stats.log_wire_bytes += wire_entry_nbytes(key, value)
+        if self.log_capture:
+            # capture BEFORE any policy auto-sync below, so the staging
+            # that this very write triggers still carries it
+            self._capture_op(key, value, kind)
         if (self.cfg.sync_policy == "every_k"
-                and self._writes_since_sync >= self.cfg.sync_every_k):
+                and self._writes_since_sync >= self.cfg.sync_every_k
+                and not self._sync_deferred):
             self.export_snapshot()
+
+    def _capture_op(self, key: bytes, value: bytes, kind: str):
+        """Append this write to the epoch log for the log-shipped feed.
+        A write that missed the fast path (split/merge/underflow — the
+        tree shape changed) or stored an overflow-length value (the
+        overflow slot id is not derivable from the wire value) poisons
+        the epoch: its staging ships the image delta instead."""
+        placement = self.tree.last_placement
+        if placement is None or len(value) > self.cfg.max_inline_val_bytes:
+            self._epoch_replayable = False
+            self._epoch_log.clear()
+            return
+        if self._epoch_replayable:
+            op = Delete(key) if kind == "delete" \
+                else OPS_BY_KIND[kind](key, value)
+            self._epoch_log.append((op, placement))
+
+    @contextlib.contextmanager
+    def deferred_sync(self):
+        """Suspend automatic policy syncs ("every_k") for a write burst the
+        caller will close with ONE batched sync."""
+        self._sync_deferred = True
+        try:
+            yield
+        finally:
+            self._sync_deferred = False
 
     # ---------------------------------------------------- host-side reads
     def get(self, key: bytes) -> bytes | None:
@@ -299,17 +348,50 @@ class StoreShard:
             self._standby_pin = t.epochs.accel_begin_batch(1)
         self.pipeline_stats.staged_exports += 1
         self.pipeline_stats.export_s += _now() - t0
+        # replication feed: record what crossed the bus and let the replica
+        # group replay it into every follower's standby (after the export
+        # meters close, so follower staging never pollutes primary timings)
         self.last_staged = StagedSync(
             kind=staged_kind, snapshot=snap,
             delta=self._staged_delta if staged_kind == "delta" else None,
             nbytes=stats.bytes_synced - bytes0, delta_rows=staged_rows,
             read_version=self._standby_rv,
             image_dmas=stats.image_dma_count - dmas0,
-            image_bytes=stats.image_bytes - ibytes0)
+            image_bytes=stats.image_bytes - ibytes0,
+            log_payload=self._build_log_payload(staged_kind))
         self._staged_delta = None
+        # epoch boundary for the log-shipped feed: whatever happens next
+        # belongs to the next staging
+        self._epoch_log = []
+        self._epoch_replayable = True
         if self.on_staged is not None:
             self.on_staged(self.last_staged)
         return True
+
+    def _build_log_payload(self, staged_kind: str) -> LogPayload | None:
+        """Encode the epoch's writes ONCE as the wire stream + placement
+        sidecar every follower edge ships.  None — the per-epoch fallback —
+        when capture is off, the staging was a full publish, the epoch saw
+        a non-fast-path write or GC, or page-table commands rode the delta
+        (the tree shape changed: a log replay could not reproduce them)."""
+        if (not self.log_capture or staged_kind != "delta"
+                or not self._epoch_replayable or self._staged_pt_cmds):
+            return None
+        log = self._epoch_log
+        E = len(log)
+        wire = b"".join(op.encode_wire() for op, _ in log)
+        rows = np.fromiter((p[0] for _, p in log), np.int32, E)
+        slots = np.fromiter((p[1] for _, p in log), np.int32, E)
+        backptrs = np.fromiter((p[2] for _, p in log), np.int32, E)
+        hints = np.fromiter((p[3] for _, p in log), np.int32, E)
+        vdeltas = np.fromiter((p[4] for _, p in log), np.int64, E)
+        sidecar = (rows.nbytes + slots.nbytes + backptrs.nbytes
+                   + hints.nbytes + vdeltas.nbytes)
+        return LogPayload(
+            wire=wire, rows=rows, slots=slots, backptrs=backptrs,
+            hints=hints, vdeltas=vdeltas, entries=E,
+            read_version=self._standby_rv, wire_nbytes=len(wire),
+            nbytes=len(wire) + sidecar)
 
     def flip(self) -> TreeSnapshot | None:
         """Publish the staged standby as the active snapshot — the atomic
@@ -381,6 +463,9 @@ class StoreShard:
         stats = self.sync_stats
         layout = NodeImageLayout.for_config(self.cfg)
         pt_lids, pt_phys = t.pt.take_pending()
+        # pending LID moves mean the tree shape changed under this epoch —
+        # a log replay cannot reproduce them, so the feed must fall back
+        self._staged_pt_cmds = len(pt_lids)
         # pad to bucketed sizes with repeats (duplicate indices carry
         # identical data); when empty, row/lid 0 rewrites itself with its
         # current contents (clean rows match the device image)
@@ -532,7 +617,14 @@ class StoreShard:
 
     # ------------------------------------------------------------- misc
     def collect_garbage(self) -> int:
-        return self.tree.gc.collect()
+        n = self.tree.gc.collect()
+        if n:
+            # GC wipes freed slots (marking them dirty) and queues LID
+            # frees — row mutations no wire entry describes, so the
+            # epoch's staging must ship the image delta
+            self._epoch_replayable = False
+            self._epoch_log.clear()
+        return n
 
     @property
     def stats(self):

@@ -4,8 +4,10 @@
 ``Clock``/``CLOCK`` is THE injectable monotonic clock every timing site
 reads (core/shard.py aliases it as ``_now``), and ``samples_from`` is the
 shared ``collect()`` implementation of ``SyncStats``, ``TreeStats``,
-``PipelineStats`` and ``CacheStats``.  The metrics registry, histograms,
-tracer and exporters come with the service layer.
+``PipelineStats``, ``CacheStats`` and ``FeedStats``; ``merge_stats`` is
+the one aggregation path the router and the replica group use.  The
+metrics registry, histograms, tracer and exporters come with the service
+layer.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import dataclasses
 import time
 from typing import Any, Iterable
 
-__all__ = ["CLOCK", "Clock", "MetricSample", "samples_from"]
+__all__ = ["CLOCK", "Clock", "MetricSample", "merge_stats", "samples_from"]
 
 
 class Clock:
@@ -88,3 +90,23 @@ def samples_from(obj, prefix: str, layer: str,
         out.append(MetricSample(f"{prefix}_{name}", "gauge",
                                 float(getattr(obj, name)), {"layer": layer}))
     return out
+
+
+def merge_stats(parts, factory):
+    """Merge per-shard / per-replica stat objects into one ``factory()``.
+
+    THE aggregation helper for every layer (``router.aggregate_stats`` is
+    its alias): objects with a ``merge()`` method merge through it
+    (``SyncStats`` maxes ``delta_fraction``, ``PipelineStats`` sums);
+    plain dataclasses (``TreeStats``, ``CacheStats``, ``FeedStats``)
+    field-sum."""
+    agg = factory()
+    if hasattr(agg, "merge"):
+        for p in parts:
+            agg.merge(p)
+    else:
+        for p in parts:
+            for f in dataclasses.fields(agg):
+                setattr(agg, f.name,
+                        getattr(agg, f.name) + getattr(p, f.name))
+    return agg

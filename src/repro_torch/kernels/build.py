@@ -26,7 +26,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"fused_get": 0, "fused_scan": 0, "row_scatter": 0}
+LAUNCHES = {"fused_get": 0, "fused_scan": 0, "row_scatter": 0,
+            "log_replay": 0}
+
+#: every CUDA source of the port, by name (``csrc/<name>.cu``)
+SOURCES = ("fused_read", "row_scatter", "log_replay")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,13 +1,18 @@
-"""Delta-sync row scatter on the GPU (port of
-``repro.kernels.delta_scatter.snapshot_delta_scatter`` /
-``snapshot_image_scatter``).
+"""Snapshot scatters on the GPU (port of
+``repro.kernels.delta_scatter``: ``snapshot_delta_scatter`` /
+``snapshot_image_scatter`` and ``log_replay_scatter``).
 
-One sync's dirty node rows arrive as a dense [D, W] update block plus a
-[D] row-index vector; the kernel (``csrc/row_scatter.cu``) copies each
-update row over the matching row of the resident [S, W] image in place.
-This is the device half of the PCIe analogue: the host ships O(dirty)
-bytes and the device image is patched, never rebuilt.  Repeated rows must
-carry identical data, which keeps the scatter order-free.
+Delta sync: one sync's dirty node rows arrive as a dense [D, W] update
+block plus a [D] row-index vector; the kernel (``csrc/row_scatter.cu``)
+copies each update row over the matching row of the resident [S, W] image
+in place.  This is the device half of the PCIe analogue: the host ships
+O(dirty) bytes and the device image is patched, never rebuilt.  Repeated
+rows must carry identical data, which keeps the scatter order-free.
+
+Log replay: a follower replica applies one epoch's marshalled wire
+entries to its own image (``csrc/log_replay.cu``): each entry moves only
+its ~(key_words + val_words + 6) words into its leaf's log slot, instead
+of a whole image row per dirty node.
 """
 from __future__ import annotations
 
@@ -17,18 +22,24 @@ import torch
 
 from . import build, ref
 
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "row_scatter": [_P, _I, _I, _P, _P, _I, _P],
+    # image, S, IW, rows, slots, entries, D, EW, 11 layout offsets, stream
+    "log_replay": [_P, _I, _I, _P, _P, _P, _I, _I] + [_I] * 11 + [_P],
+}
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = build.load("row_scatter")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.row_scatter_launch.argtypes = [p, i, i, p, p, i, p]
-        lib.row_scatter_launch.restype = i
-        _LIB = lib
-    return _LIB
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = build.load(name)
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _I
+        _LIBS[name] = lib
+    return lib
 
 
 def snapshot_delta_scatter(dst: torch.Tensor, rows: torch.Tensor,
@@ -51,7 +62,7 @@ def snapshot_delta_scatter(dst: torch.Tensor, rows: torch.Tensor,
     if D == 0:
         return dst
     ref.check_rows(rows, S)        # as the plain version, before writing
-    lib = _lib()
+    lib = _lib("row_scatter")
     with torch.cuda.device(dst.device):   # the launcher uses the current device
         stream = torch.cuda.current_stream(dst.device).cuda_stream
         err = lib.row_scatter_launch(dst.data_ptr(), S, W, rows.data_ptr(),
@@ -66,3 +77,47 @@ def snapshot_image_scatter(image: torch.Tensor, rows: torch.Tensor,
     """image[rows[i], :] = upd[i, :] — ONE contiguous image-row copy per
     dirty node (the packed layout's whole sync), in place on CUDA."""
     return snapshot_delta_scatter(image, rows, upd)
+
+
+def log_replay_scatter(image: torch.Tensor, rows: torch.Tensor,
+                       slots: torch.Tensor, entries: torch.Tensor, *,
+                       offs) -> torch.Tensor:
+    """Replay one epoch's marshalled log entries into a resident packed
+    node image, in place on CUDA (the log-shipped feed's device half).
+
+    image:   [S, IW] int32 resident follower node images (u32 bit views)
+    rows:    [D] int32 target physical slots (leaves that took appends)
+    slots:   [D] int32 log slot index per entry, in [0, log_cap)
+    entries: [D, key_words + val_words + 6] int32 marshalled records
+    offs:    ``core/schema.LogReplayOffsets``
+    Each touched row's ``nlog`` becomes its highest ``slots + 1`` in this
+    call.  Returns ``image``."""
+    build.check_tensor(image, "image", 2)
+    for t, name, nd in ((rows, "rows", 1), (slots, "slots", 1),
+                        (entries, "entries", 2)):
+        build.check_tensor(t, name, nd, image.device)
+    if (image.dtype != torch.int32 or rows.dtype != torch.int32
+            or slots.dtype != torch.int32 or entries.dtype != torch.int32):
+        raise ValueError("image, rows, slots and entries must be int32")
+    S, IW = image.shape
+    D = rows.shape[0]
+    EW = offs.key_words + offs.val_words + 6
+    if slots.shape != (D,) or entries.shape != (D, EW):
+        raise ValueError(f"need slots [{D}] and entries [{D}, {EW}], got "
+                         f"{tuple(slots.shape)} and {tuple(entries.shape)}")
+    if IW < offs.log_vdelta + offs.log_cap:
+        raise ValueError(f"image rows of {IW} words do not hold the log "
+                         f"fields at {offs}")
+    if D == 0:
+        return image
+    ref.check_rows(rows, S)        # as the plain version, before writing
+    ref.check_slots(slots, offs.log_cap)
+    lib = _lib("log_replay")
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        err = lib.log_replay_launch(
+            image.data_ptr(), S, IW, rows.data_ptr(), slots.data_ptr(),
+            entries.data_ptr(), D, EW, *offs, stream)
+    build.check(err, "log_replay")
+    build.LAUNCHES["log_replay"] += 1
+    return image

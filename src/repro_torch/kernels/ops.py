@@ -2,8 +2,9 @@
 
 The tensor's device selects the implementation: a CPU tensor runs the
 plain PyTorch version (``kernels/ref.py``), a CUDA tensor launches the
-hand-written kernel (``delta_scatter.py``, ``fused_read.py``), and any
-other device raises.  A CUDA call never falls back to the plain version.
+hand-written kernel (``delta_scatter.py``: row scatter and log replay;
+``fused_read.py``), and any other device raises.  A CUDA call never falls
+back to the plain version.
 
 ``READ_DISPATCHES`` meters dispatched launches per read batch, recorded
 at the shard's dispatch site: the fused kernel executes the whole
@@ -107,6 +108,19 @@ def snapshot_image_scatter(image, rows, upd):
     if _on_cuda(image):
         return _ds.snapshot_image_scatter(image, rows, upd)
     return _ref.snapshot_image_scatter_ref(image, rows, upd)
+
+
+def log_replay_scatter(image, rows, slots, entries, *, offs):
+    """Replay marshalled log entries into a resident packed image, in
+    place (the log-shipped replication feed): entry ``i`` writes its
+    ~(key_words + val_words + 6) words into row ``rows[i]`` at log slot
+    ``slots[i]`` (static offsets ``offs``, ``core/schema.LogReplayOffsets``)
+    and each touched row's ``nlog`` becomes its highest slot + 1.  Returns
+    ``image``."""
+    if _on_cuda(image):
+        return _ds.log_replay_scatter(image, rows, slots, entries, offs=offs)
+    return _ref.log_replay_scatter_ref(image, rows, slots, entries,
+                                       offs=offs)
 
 
 def batched_get_fused(snap, key, klen, *, cfg, lb_fraction: float = 0.0):

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the hand-written kernels (port of the
-main-path oracles in ``repro.kernels.ref``).
+oracles in ``repro.kernels.ref``: the fused reads, the delta-sync row
+scatter and the log-replay scatter).
 
 The kernel wrappers (``delta_scatter.py``, ``fused_read.py``) are held to
 these bit for bit, and ``ops.py`` runs them for tensors on the CPU.
@@ -36,6 +37,61 @@ def snapshot_image_scatter_ref(image: torch.Tensor, rows: torch.Tensor,
     """Packed node-image row scatter, in place: image[rows[i]] = upd[i] —
     one whole node image per dirty row (same duplicates contract)."""
     return snapshot_delta_scatter_ref(image, rows, upd)
+
+
+def check_slots(slots: torch.Tensor, log_cap: int) -> None:
+    """Raise IndexError unless every log slot lies in [0, log_cap): a slot
+    past the log would address a neighbouring field of the image row."""
+    if slots.numel():
+        lo, hi = torch.stack(torch.aminmax(slots)).tolist()
+        if lo < 0 or hi >= log_cap:
+            raise IndexError(
+                f"log slots must lie in [0, {log_cap}), got [{lo}, {hi}]")
+
+
+def log_replay_scatter_ref(image: torch.Tensor, rows: torch.Tensor,
+                           slots: torch.Tensor, entries: torch.Tensor, *,
+                           offs) -> torch.Tensor:
+    """Log-replay scatter, in place on an int32 image; returns ``image``.
+
+    Entry ``i`` (a marshalled ``[log_entry_words]`` record,
+    ``schema.pack_log_entries``) writes its key/value lanes, lengths, op
+    code, backptr, hint and vdelta words into image row ``rows[i]`` at the
+    static layout offsets in ``offs`` (a ``schema.LogReplayOffsets``), each
+    per-slot field advanced by ``slots[i] * width``.  ``nlog`` of every
+    touched row is SET to the highest ``slots + 1`` among this call's
+    entries for that row (not maxed with the row's old count).  Padded
+    duplicate entries repeat the same record, so order is immaterial."""
+    S, IW = image.shape
+    check_rows(rows, S)
+    check_slots(slots, offs.log_cap)
+    if rows.numel() == 0:
+        return image
+    kw, vw = offs.key_words, offs.val_words
+    r = rows.long() % S               # negative rows wrap Python-style
+    j = slots.long()
+    flat = image.view(-1)
+    base = r * IW
+
+    def lanes(off, width):            # flat indices of a multi-word field
+        ar = torch.arange(width, device=image.device)
+        return (base[:, None] + off + j[:, None] * width
+                + ar[None, :]).reshape(-1)
+
+    flat[lanes(offs.log_keys, kw)] = entries[:, 0:kw].reshape(-1)
+    flat[base + offs.log_keylen + j] = entries[:, kw]
+    flat[lanes(offs.log_vals, vw)] = entries[:, kw + 1:kw + 1 + vw].reshape(-1)
+    flat[base + offs.log_vallen + j] = entries[:, kw + 1 + vw]
+    flat[base + offs.log_op + j] = entries[:, kw + vw + 2]
+    flat[base + offs.log_backptr + j] = entries[:, kw + vw + 3]
+    flat[base + offs.log_hint + j] = entries[:, kw + vw + 4]
+    flat[base + offs.log_vdelta + j] = entries[:, kw + vw + 5]
+    # per-row final count: entries sharing a row all carry that row's max
+    # slots+1, so the duplicate-index write below is order-free
+    same_row = r[:, None] == r[None, :]
+    final = torch.where(same_row, (j + 1)[None, :], 0).amax(dim=1)
+    image[r, offs.nlog] = final.to(image.dtype)
+    return image
 
 
 def batched_scan_fused_ref(snap, lo, lolen, hi, hilen, *, cfg,

@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import HoneycombConfig, HoneycombStore
+from repro_torch.core import (FeedTopology, HoneycombConfig, HoneycombStore,
+                              NodeImageLayout, ReplicationConfig,
+                              ShardedHoneycombStore, uniform_int_boundaries)
 from repro_torch.core.keys import int_key, pack_keys
 from repro_torch.core.read_path import attach_cache_image
 from repro_torch.kernels import build, delta_scatter, fused_read, ref
@@ -165,3 +167,107 @@ def test_row_scatter_kernel_rejects_rows_out_of_range(cuda, bad):
     want = ref.snapshot_image_scatter_ref(image.clone(), rows, upd)
     got = delta_scatter.snapshot_image_scatter(image, rows, upd)
     assert torch.equal(want, got) and bool(got[299].eq(1).all())
+
+
+def _replay_case(seed, n_entries, S=300):
+    """A random image and log entries at SMALL's geometry: up to three
+    entries per row at distinct slots, in shuffled order, padded with
+    repeats of the last record; row 7 has an old nlog above every new
+    slot."""
+    layout = NodeImageLayout.for_config(SMALL)
+    offs = layout.log_replay_offsets()
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    image = torch.randint(-2 ** 31, 2 ** 31 - 1, (S, layout.image_words),
+                          generator=g, dtype=torch.int32)
+    pool = torch.randperm(S - 8, generator=g)[:(n_entries + 2) // 3] + 8
+    pool[0] = 7
+    i = torch.arange(n_entries)
+    order = torch.randperm(n_entries, generator=g)
+    rows = pool[i // 3][order].to(torch.int32)
+    slots = (i % 3)[order].to(torch.int32)
+    image[7, offs.nlog] = offs.log_cap
+    entries = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                            (n_entries, layout.log_entry_words), generator=g,
+                            dtype=torch.int32)
+    pad = 5
+    rows = torch.cat([rows, rows[-1:].expand(pad)])
+    slots = torch.cat([slots, slots[-1:].expand(pad)])
+    entries = torch.cat([entries, entries[-1:].expand(pad, -1)])
+    return image, rows, slots, entries, offs
+
+
+@pytest.mark.parametrize("seed,n_entries", [(0, 3), (1, 27), (2, 200)])
+def test_log_replay_kernel_matches_plain(cuda, seed, n_entries):
+    image, rows, slots, entries, offs = _replay_case(seed, n_entries)
+    want = ref.log_replay_scatter_ref(image.clone(), rows, slots, entries,
+                                      offs=offs)
+    dev = [x.to(cuda) for x in (image, rows, slots, entries)]
+    build.reset_launches()
+    got = delta_scatter.log_replay_scatter(*dev, offs=offs)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == dev[0].data_ptr()          # in place
+    assert build.LAUNCHES["log_replay"] == 1
+    assert torch.equal(want, got.cpu())
+    # row 7's old count (log_cap) gives way to its highest new slot + 1
+    assert int(want[7, offs.nlog]) == int(slots[rows == 7].max()) + 1
+
+
+@pytest.mark.parametrize("row,slot", [(300, 0), (-301, 0), (2, -1), (2, 4)])
+def test_log_replay_kernel_rejects_bad_rows_and_slots(cuda, row, slot):
+    """Like the plain version, the wrapper raises on a row outside
+    [-S, S) or a slot outside [0, log_cap) and writes nothing."""
+    image, rows, slots, entries, offs = _replay_case(3, 6)
+    rows[1], slots[1] = row, slot
+    dev = [x.to(cuda) for x in (image, rows, slots, entries)]
+    with pytest.raises(IndexError):
+        delta_scatter.log_replay_scatter(*dev, offs=offs)
+    assert torch.equal(dev[0].cpu(), image)
+
+
+@pytest.mark.parametrize("feed", ["log", "delta"])
+def test_replicated_store_on_cuda_matches_cpu_store(cuda, feed):
+    """A 2-shard, 2-replica store on CUDA answers as on the CPU, with the
+    same meters and bit-identical follower images; its follower log
+    replays and delta applies go through the kernels."""
+    def make(device):
+        return ShardedHoneycombStore(
+            SMALL, heap_capacity=256, shards=2,
+            boundaries=uniform_int_boundaries(320, 2),
+            replication=ReplicationConfig(2, "round_robin", feed,
+                                          FeedTopology(2, 0)),
+            device=device)
+    stores = [make(cuda), make("cpu")]
+    for i in np.random.default_rng(0).permutation(300):
+        for s in stores:
+            s.put(int_key(int(i)), b"v%06d" % i)
+    build.reset_launches()
+    rng = np.random.default_rng(3)
+    for rnd in range(8):
+        for i in rng.integers(0, 320, int(rng.choice([2, 6, 40]))):
+            for s in stores:
+                s.update(int_key(int(i)), b"r%d-%d" % (rnd, i))
+        for s in stores:
+            s.export_snapshot()
+        keys = [int_key(int(i)) for i in rng.integers(0, 320, 33)]
+        ranges = [(int_key(int(i)), int_key(int(i) + 9))
+                  for i in rng.integers(0, 320, 17)]
+        gets = [s.get_batch(keys) for s in stores]
+        scans = [s.scan_batch(ranges) for s in stores]
+        assert gets[0] == gets[1] and scans[0] == scans[1]
+    a, b = stores
+    assert dataclasses.asdict(a.feed_stats) == dataclasses.asdict(b.feed_stats)
+    assert a.per_shard_replica_ops == b.per_shard_replica_ops
+    for ga, gb in zip(a.shards, b.shards):
+        assert ga.per_replica_sync_stats == gb.per_replica_sync_stats
+        for fa, fb in zip(ga.followers, gb.followers):
+            assert torch.equal(fa.snapshot.image.cpu(), fb.snapshot.image)
+            assert torch.equal(fa.snapshot.image, ga.primary._snapshot.image)
+    replays = sum(s.log_replays for g in a.shards
+                  for s in g.per_replica_sync_stats)
+    applies = sum(s.delta_syncs for g in a.shards
+                  for s in g.per_replica_sync_stats)
+    assert build.LAUNCHES["log_replay"] == replays
+    assert build.LAUNCHES["row_scatter"] == applies
+    if feed == "log":
+        assert replays > 0 and a.feed_stats.log_feed_epochs > 0
+    assert sum(r for g in a.per_shard_replica_ops for r in g[1:]) > 0

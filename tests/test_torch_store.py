@@ -2,8 +2,8 @@
 ``repro.core`` HoneycombStore fed the same ops give equal GET/SCAN
 answers, serving versions, SyncStats, PipelineStats lane counts and
 CacheStats device meters, under all three sync policies; plus the port's
-refusals (no CUDA, legacy layout, unported replication feed) and
-chip_smoke.py's refusal to run without a card."""
+refusals (no CUDA, legacy layout, an unknown device) and chip_smoke.py's
+refusal to run without a card."""
 from __future__ import annotations
 
 import dataclasses
@@ -106,10 +106,10 @@ def test_store_refuses_what_it_cannot_serve(monkeypatch):
     with pytest.raises(NotImplementedError):
         TStore(TConfig(layout="legacy"), device="cpu")
     st = TStore(device="cpu")
-    with pytest.raises(NotImplementedError):
-        st.log_capture = True
     st.put(b"k", b"v")
-    assert not st.log_capture and st.get_batch([b"k"]) == [b"v"]
+    # an unreplicated store captures no log for the replication feed
+    assert not st.log_capture and st._epoch_log == []
+    assert st.get_batch([b"k"]) == [b"v"]
     with pytest.raises(ValueError):
         TStore(device="meta")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -26,9 +26,10 @@ stays in device memory and L2).
 The host side of the structure remains: a set-associative metadata table
 keyed by LID, refreshed at export, invalidated when the page table remaps
 or frees a LID (Section 5: "the cache entry for the node with that LID is
-invalidated" — wired via ``PageTable.on_remap``).  The host ``route``
-model the reference's benchmarks use for the Fig. 16 curves comes with
-the port's benchmarks.
+invalidated" — wired via ``PageTable.on_remap``), plus the host load
+balancer ``route`` (``cfg.load_balance``/``lb_fast_fraction``) with its
+fast/slow read and byte meters, the model the reference's benchmarks use
+for the Fig. 16 hit-rate/byte-split curves.
 """
 from __future__ import annotations
 
@@ -174,3 +175,27 @@ class InteriorCache:
         out = np.full((self.cfg.cache_slots,), NULL, np.int32)
         out[: len(self.packed_lids)] = self.packed_lids
         return out
+
+    # ----------------------------------------------------- load balancer
+    def route(self, lid: int, phys: int, nbytes: int,
+              fast_inflight: int = 0, slow_inflight: int = 0) -> str:
+        """Load-balanced read routing (Section 5).  Returns 'fast' (cache)
+        or 'slow' (heap/PCIe).  Balances by inflight bytes when telemetry is
+        supplied, else by the configured fraction."""
+        hit = self.lookup(lid, phys)
+        if not hit:
+            path = "slow"
+        elif not self.cfg.load_balance:
+            path = "fast"
+        elif fast_inflight or slow_inflight:
+            path = "fast" if fast_inflight <= slow_inflight else "slow"
+        else:
+            path = "fast" if self._rng.random() < self.cfg.lb_fast_fraction \
+                else "slow"
+        if path == "fast":
+            self.stats.fast_path_reads += 1
+            self.stats.fast_bytes += nbytes
+        else:
+            self.stats.slow_path_reads += 1
+            self.stats.slow_bytes += nbytes
+        return path

@@ -15,18 +15,17 @@ Mirrors the paper's node geometry (Section 3.1) as fixed-width slots:
   5 B version delta             32-bit delta; wrap forces a merge, same as
                                 the paper's wrap-forces-merge rule
 
-Ported so far: ``HoneycombConfig``, ``bucket_pow2``, the range-sharding
-config and the replication configs (feeds, relay topology, read-spreading
-policies).  The service and telemetry configs come with the service
-layer.
+Everything the reference's configs hold that the port runs:
+``HoneycombConfig`` (both snapshot layouts), ``bucket_pow2``, the
+range-sharding config, the replication configs (feeds, relay topology,
+read-spreading policies) and the service and telemetry configs.
 """
 from __future__ import annotations
 
 import dataclasses
 
 
-# device-resident snapshot layouts (HoneycombConfig.layout); the port
-# serves "packed" only, "legacy" raises NotImplementedError in the shard
+# device-resident snapshot layouts (HoneycombConfig.layout)
 LAYOUTS = ("packed", "legacy")
 
 # device read-path backends (HoneycombConfig.read_backend):
@@ -71,6 +70,8 @@ class HoneycombConfig:
     # --- accelerator cache / load balancer (Section 5) ----------------------
     cache_slots: int = 256      # interior-node cache capacity (packed array)
     cache_ways: int = 4         # set associativity of the metadata table
+    load_balance: bool = True   # route some cache hits to the slow path
+    lb_fast_fraction: float = 0.75  # fraction of hits served by the cache path
     # device cache tier: how many tree levels from the root are packed into
     # the snapshot's contiguous cache array; lb_fraction is the Section 5
     # dual-pipe knob — the fraction of cache-HIT level lookups the fused
@@ -92,10 +93,16 @@ class HoneycombConfig:
     # dirty-row fraction above which a delta sync would move more bytes than
     # a wholesale republish is worth; fall back to a full publish
     delta_full_threshold: float = 0.5
-    # device-resident snapshot representation (core/schema.py): "packed" is
-    # ONE contiguous u32 node image per slot — a dirty node syncs as a single
-    # image-row copy (the paper's 8 KB node transfer)
+    # device-resident snapshot representation (core/schema.py):
+    # "packed": ONE contiguous u32 node image per slot — a dirty node syncs
+    #           as a single image-row copy (the paper's 8 KB node transfer);
+    # "legacy": per-field tensors — every field's dirty rows scatter in one
+    #           multi-field kernel launch, kept as the packed layout's
+    #           op-for-op parity reference.
     layout: str = "packed"
+    # device read-path backend (see READ_BACKENDS above); a legacy-layout
+    # snapshot carries no packed image for the fused kernel, so that layout
+    # always reads through the "reference" path
     read_backend: str = "fused"
 
     def __post_init__(self):
@@ -129,6 +136,59 @@ class HoneycombConfig:
     @property
     def max_inline_val_bytes(self) -> int:
         return self.val_words * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Observability knobs (core/telemetry.py).
+
+    ``enabled=False`` skips telemetry construction entirely: no registry,
+    no histograms, no tracer — the scheduler hot path pays only ``is
+    None`` branches.  ``trace_sample_rate`` samples per-request lifecycle
+    traces deterministically (every ``round(1/rate)``-th request; 0
+    disables tracing and allocates nothing); finished traces are retained
+    in a ring buffer of ``trace_capacity``.  The histogram geometry knobs
+    pin the log-bucket resolution of every latency histogram the service
+    records."""
+    enabled: bool = True
+    trace_sample_rate: float = 0.0
+    trace_capacity: int = 256
+    latency_lo: float = 1e-7         # histogram range floor (seconds)
+    latency_hi: float = 1e3          # histogram range ceiling (seconds)
+    buckets_per_decade: int = 16     # log-bucket resolution
+
+    def __post_init__(self):
+        assert 0.0 <= self.trace_sample_rate <= 1.0, (
+            "trace_sample_rate is a probability in [0, 1]")
+        assert self.trace_capacity >= 1, "trace ring needs >= 1 slot"
+        assert 0.0 < self.latency_lo < self.latency_hi, (
+            "histogram range must satisfy 0 < lo < hi")
+        assert self.buckets_per_decade >= 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig:
+    """Serving-front-end knobs for ``HoneycombService`` (core/api.py).
+
+    ``batch_size`` is the dense device-batch target the scheduler fills per
+    (shard, replica, kind, cost_class) bucket; ``cost_classes`` the
+    expected-work buckets SCANs are split into; ``pipeline`` the epoch
+    composition (``"serial"`` waits for the sync on the device before any
+    read dispatches, ``"pipelined"`` stages and flips without waiting —
+    core/scheduler.py); ``telemetry`` the observability knobs
+    (core/telemetry.py)."""
+    batch_size: int = 256
+    cost_classes: tuple[int, ...] = (1, 4, 16, 64)
+    pipeline: str = "serial"
+    telemetry: TelemetryConfig = TelemetryConfig()
+
+    def __post_init__(self):
+        assert self.batch_size >= 1, "batch_size must be >= 1"
+        assert self.cost_classes, "need at least one cost class"
+        from .pipeline import PIPELINE_MODES
+        assert self.pipeline in PIPELINE_MODES, (
+            f"unknown pipeline mode {self.pipeline!r} "
+            f"(one of {PIPELINE_MODES})")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,7 +4,8 @@ Each ``StoreShard`` keeps an *active* snapshot that read batches execute
 against and stages the next epoch into a *standby* (``begin_export``);
 ``flip`` publishes the standby atomically.  ``PipelineStats`` meters the
 shard's staging/flip side and the device-lane occupancy of its read
-batches; the scheduler's stage loop comes with the service layer.
+batches, and the scheduler's admit/export/dispatch stages
+(core/scheduler.py, ``"serial"`` or ``"pipelined"``).
 """
 from __future__ import annotations
 

@@ -25,6 +25,15 @@ reference's dtypes bit for bit.  Versions are int32 on the device; the
 host keeps the authoritative 64-bit counters.  Gathers with a NULL (-1)
 index wrap to the last row exactly as the reference's do; such lanes are
 always masked out of the results.
+
+Snapshot layouts: the default device-resident representation is the
+PACKED node image (core/schema.py), one ``[S, image_words]`` tensor with
+every per-node field at a static word offset.  The per-field
+representation (``cfg.layout="legacy"``) survives as
+``LegacyTreeSnapshot``/``LegacySnapshotDelta``: one tensor per field, each
+dirty row shipped as 24 per-field blocks.  All search and scan code reads
+fields through ``snapshot_fields()``, which slices packed images at the
+layout's offsets and passes legacy snapshots through untouched.
 """
 from __future__ import annotations
 
@@ -60,6 +69,45 @@ class TreeSnapshot(NamedTuple):
     cache_image: torch.Tensor | None = None   # i32 [C, image_words]
 
 
+class LegacyTreeSnapshot(NamedTuple):
+    """Per-field device image (the pre-packing layout, cfg.layout="legacy"):
+    one int32 tensor per node field (u32 fields as their bit views), kept
+    as the packed layout's op-for-op parity reference.  It carries no
+    cache tier, so it is read through the ``"reference"`` path."""
+    ntype: torch.Tensor        # i32 [S]
+    nitems: torch.Tensor       # i32 [S]
+    version: torch.Tensor      # i32 [S]
+    oldptr: torch.Tensor       # i32 [S]
+    left_child: torch.Tensor   # i32 [S]
+    lsib: torch.Tensor         # i32 [S]
+    rsib: torch.Tensor         # i32 [S]
+    skeys: torch.Tensor        # i32 [S, N, KW] (u32 bit views)
+    skeylen: torch.Tensor      # i32 [S, N]
+    svals: torch.Tensor        # i32 [S, N, VW] (u32 bit views)
+    svallen: torch.Tensor      # i32 [S, N]
+    n_shortcuts: torch.Tensor  # i32 [S]
+    sc_keys: torch.Tensor      # i32 [S, NSC, KW] (u32 bit views)
+    sc_keylen: torch.Tensor    # i32 [S, NSC]
+    sc_pos: torch.Tensor       # i32 [S, NSC]
+    nlog: torch.Tensor         # i32 [S]
+    log_keys: torch.Tensor     # i32 [S, L, KW] (u32 bit views)
+    log_keylen: torch.Tensor   # i32 [S, L]
+    log_vals: torch.Tensor     # i32 [S, L, VW] (u32 bit views)
+    log_vallen: torch.Tensor   # i32 [S, L]
+    log_op: torch.Tensor       # i32 [S, L]
+    log_backptr: torch.Tensor  # i32 [S, L]
+    log_hint: torch.Tensor     # i32 [S, L]
+    log_vdelta: torch.Tensor   # i32 [S, L]
+    pagetable: torch.Tensor    # i32 [LIDS]
+    root_lid: int
+    read_version: int
+
+
+# per-node-row snapshot fields, in layout order — derived from the ONE
+# schema (core/schema.py), not re-enumerated
+NODE_FIELDS = FIELD_NAMES
+
+
 class SnapshotFields:
     """Per-field view of a packed snapshot: each attribute is a static
     column slice of the image (no copy), shaped per node."""
@@ -71,8 +119,8 @@ class SnapshotFields:
 
 
 def snapshot_fields(snap, cfg: HoneycombConfig):
-    """Adapt a packed snapshot (or an existing view) to per-field
-    attribute access."""
+    """Adapt any snapshot (packed, legacy, or an existing view) to
+    per-field attribute access; legacy snapshots pass through."""
     if isinstance(snap, TreeSnapshot):
         layout = NodeImageLayout.for_config(cfg)
         return SnapshotFields(pagetable=snap.pagetable,
@@ -113,25 +161,78 @@ class SnapshotDelta(NamedTuple):
     cache_lids: torch.Tensor | None = None  # i32 [C] next epoch's cache tier
 
 
-def apply_snapshot_delta(snap: TreeSnapshot, delta: SnapshotDelta, *,
-                         cfg: HoneycombConfig | None = None):
+class LegacySnapshotDelta(NamedTuple):
+    """Per-field delta (cfg.layout="legacy"): one [D, ...] update block per
+    node field — 24 blocks per dirty node, the traffic shape the packed
+    layout collapses to one.  Rows may repeat with identical data."""
+    rows: torch.Tensor         # i32 [D] dirty physical slots
+    ntype: torch.Tensor        # i32 [D]
+    nitems: torch.Tensor       # i32 [D]
+    version: torch.Tensor      # i32 [D]
+    oldptr: torch.Tensor       # i32 [D]
+    left_child: torch.Tensor   # i32 [D]
+    lsib: torch.Tensor         # i32 [D]
+    rsib: torch.Tensor         # i32 [D]
+    skeys: torch.Tensor        # i32 [D, N, KW]
+    skeylen: torch.Tensor      # i32 [D, N]
+    svals: torch.Tensor        # i32 [D, N, VW]
+    svallen: torch.Tensor      # i32 [D, N]
+    n_shortcuts: torch.Tensor  # i32 [D]
+    sc_keys: torch.Tensor      # i32 [D, NSC, KW]
+    sc_keylen: torch.Tensor    # i32 [D, NSC]
+    sc_pos: torch.Tensor       # i32 [D, NSC]
+    nlog: torch.Tensor         # i32 [D]
+    log_keys: torch.Tensor     # i32 [D, L, KW]
+    log_keylen: torch.Tensor   # i32 [D, L]
+    log_vals: torch.Tensor     # i32 [D, L, VW]
+    log_vallen: torch.Tensor   # i32 [D, L]
+    log_op: torch.Tensor       # i32 [D, L]
+    log_backptr: torch.Tensor  # i32 [D, L]
+    log_hint: torch.Tensor     # i32 [D, L]
+    log_vdelta: torch.Tensor   # i32 [D, L]
+    pt_lids: torch.Tensor      # i32 [P] page-table command targets
+    pt_phys: torch.Tensor      # i32 [P] new mappings (may repeat, identical)
+    root_lid: int
+    read_version: int
+
+
+# the two legacy tuples spell the schema's field list out; hold them to it
+assert LegacyTreeSnapshot._fields[:len(NODE_FIELDS)] == NODE_FIELDS
+assert LegacySnapshotDelta._fields[1:1 + len(NODE_FIELDS)] == NODE_FIELDS
+
+
+def apply_snapshot_delta(snap, delta, *, cfg: HoneycombConfig | None = None):
     """Scatter one sync's dirty rows + page-table commands into a copy of
     a resident snapshot, yielding the next snapshot.
 
     Functional on purpose: the input snapshot's tensors are never written,
     so old snapshots held by in-flight batches keep answering at their
-    read version (wait-free MVCC).  The image is cloned whole and the row
-    scatter (``kernels/ops.snapshot_image_scatter``: the hand-written
-    kernel on CUDA) patches the clone in place; the clone moves S·IW·4
-    bytes each way and dwarfs the scatter.  With ``cfg`` the cache tier is
-    rebuilt from the patched image; without it the cache image is dropped
-    rather than served stale, and a fused read of such a snapshot raises
-    (``kernels/ops.py``); the reference read path still serves it."""
+    read version (wait-free MVCC).  Dispatches on the delta's layout:
+
+      * packed ``SnapshotDelta`` — the image is cloned whole and the row
+        scatter (``kernels/ops.snapshot_image_scatter``: the hand-written
+        kernel on CUDA) patches the clone in place; the clone moves
+        S·IW·4 bytes each way and dwarfs the scatter.  With ``cfg`` the
+        cache tier is rebuilt from the patched image; without it the cache
+        image is dropped rather than served stale, and a fused read of
+        such a snapshot raises (``kernels/ops.py``); the reference read
+        path still serves it.
+      * ``LegacySnapshotDelta`` — the 24 field tensors are cloned and ONE
+        multi-field scatter (``kernels/ops.snapshot_multi_scatter``)
+        patches every field's dirty rows in the clones."""
     from ..kernels import ops  # deferred: kernels.ref imports this module
-    image = snap.image.clone()
-    ops.snapshot_image_scatter(image, delta.rows, delta.image)
     pagetable = snap.pagetable.clone()
     pagetable[delta.pt_lids.long()] = delta.pt_phys
+    if isinstance(delta, LegacySnapshotDelta):
+        fields = {f: getattr(snap, f).clone() for f in NODE_FIELDS}
+        S, D = snap.ntype.shape[0], delta.rows.shape[0]
+        ops.snapshot_multi_scatter(
+            [fields[f].view(S, -1) for f in NODE_FIELDS], delta.rows,
+            [getattr(delta, f).reshape(D, -1) for f in NODE_FIELDS])
+        return snap._replace(pagetable=pagetable, root_lid=delta.root_lid,
+                             read_version=delta.read_version, **fields)
+    image = snap.image.clone()
+    ops.snapshot_image_scatter(image, delta.rows, delta.image)
     cache_lids = snap.cache_lids if delta.cache_lids is None \
         else delta.cache_lids
     nxt = snap._replace(image=image, pagetable=pagetable,

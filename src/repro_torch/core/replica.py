@@ -19,7 +19,10 @@ payloads (core/shard.py):
     commands, an overflow-length value) has no wire-replay form and falls
     back per-epoch to the image-row delta, metered as
     ``FeedStats.log_fallback_epochs``; ``feed="delta"`` ships the image
-    delta every epoch;
+    delta every epoch, and so does the legacy per-field layout, which has
+    no packed image to replay into: a legacy follower applies the
+    primary's ``LegacySnapshotDelta`` to a clone of its fields with the
+    same one-launch multi-field scatter the primary used;
   * a "full" payload (first export, heap growth, dirty fraction over the
     threshold) copies the primary's staged standby;
   * a follower that missed a payload (paused, or cut off behind a paused
@@ -42,13 +45,13 @@ a follower whose published read version lags the primary's active
 snapshot is skipped (``lagging_skips``) and the batch serves from the
 primary, so spread reads are never stale.  ``replicas=1`` is op-for-op
 the unreplicated store: no followers, no capture, hooks that do nothing.
+``routing()`` gives the service front end (core/api.py) its wiring.
 
 Device memory: every follower keeps its own active image on the shard's
 device.  Like the delta apply (``read_path.apply_snapshot_delta``), a log
 replay clones the follower's whole image (S·IW·4 bytes) and replays into
 the clone in place, so the active snapshot keeps answering while the
-standby is staged.  Not ported yet: ``routing()`` (service layer) and the
-EpochSan seams.
+standby is staged.  Not ported: the EpochSan seams (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -58,10 +61,11 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kernel_ops
-from .api import decode_wire_stream
+from .api import Routing, decode_wire_stream
 from .config import ReplicationConfig, bucket_pow2
 from .heap import LOG_DELETE, LOG_INSERT, LOG_UPDATE
-from .read_path import TreeSnapshot, apply_snapshot_delta, attach_cache_image
+from .read_path import (NODE_FIELDS, TreeSnapshot, apply_snapshot_delta,
+                        attach_cache_image)
 from .schema import NodeImageLayout
 from .shard import LogPayload, StagedSync, StoreShard, SyncStats
 from .telemetry import CLOCK, merge_stats, samples_from
@@ -90,7 +94,8 @@ class FeedStats:
     log_fallback_epochs: int = 0  # log-feed stagings that had to ship the
     #   image delta (tree shape changed / GC / overflow value)
     delta_feed_epochs: int = 0    # stagings shipped as deltas by choice
-    #   (feed="delta")
+    #   (feed="delta", or the legacy layout with no packed image to replay
+    #   into)
     full_feed_epochs: int = 0     # full-publish stagings
     full_catchups: int = 0        # out-of-sync followers refed a full copy
     catchup_bytes: int = 0        # bytes those full catch-ups moved
@@ -101,20 +106,24 @@ class FeedStats:
         return samples_from(self, "replication", "replica")
 
 
-def _snapshot_nbytes(snap: TreeSnapshot) -> int:
+def _snapshot_nbytes(snap) -> int:
     """Bytes of a whole snapshot as the reference meters them: every
     tensor field plus the two sync scalars, which the reference keeps as
     0-d int32 device arrays (4 B each) and the port as Python ints."""
     return 8 + sum(x.nbytes for x in snap if isinstance(x, torch.Tensor))
 
 
-def _image_feed_cost(snap: TreeSnapshot) -> tuple[int, int]:
+def _image_feed_cost(snap) -> tuple[int, int]:
     """(copies, node-image bytes) of device-copying a whole snapshot into
-    a follower: the packed layout moves ONE contiguous image."""
-    return 1, snap.image.nbytes
+    a follower: the packed layout moves ONE contiguous image; legacy moves
+    one tensor per field — same bytes."""
+    if isinstance(snap, TreeSnapshot):
+        return 1, snap.image.nbytes
+    return len(NODE_FIELDS), sum(getattr(snap, f).nbytes
+                                 for f in NODE_FIELDS)
 
 
-def _copy_snapshot(snap: TreeSnapshot) -> TreeSnapshot:
+def _copy_snapshot(snap):
     """A snapshot whose tensors are fresh copies (no storage shared with
     ``snap``)."""
     return snap._replace(**{f: v.clone() for f, v in snap._asdict().items()
@@ -151,8 +160,9 @@ class FollowerReplica:
         stats = self.sync_stats
         stats.snapshots += 1
         if payload.kind == "delta" and self.in_sync and base is not None:
-            # our own clone + row scatter (the row-scatter kernel on CUDA):
-            # O(dirty_rows) traffic over the feed edge
+            # our own clone + scatter (the row-scatter kernel on CUDA, or
+            # the multi-field one for a legacy delta): O(dirty_rows)
+            # traffic over the feed edge
             self._standby = apply_snapshot_delta(base, payload.delta,
                                                  cfg=self.cfg)
             stats.delta_syncs += 1
@@ -244,10 +254,13 @@ class ReplicaGroup:
         # ascend level by level, so walking followers in order always
         # visits a parent before its children
         self._parents = self.replication.topology.parents(len(self.followers))
-        # capture costs the unreplicated store nothing: the flag stays
-        # False with no followers (the port serves the packed layout only)
+        # the log feed needs the packed image (the replay kernel's one
+        # destination); the legacy per-field layout keeps the delta feed.
+        # Capture costs the unreplicated store nothing: the flag stays
+        # False with no followers.
         self._log_enabled = (self.replication.feed == "log"
-                             and bool(self.followers))
+                             and bool(self.followers)
+                             and primary.cfg.layout == "packed")
         primary.log_capture = self._log_enabled
         self._primary_served = 0       # device requests the primary served
         # read-spreading policy state: round_robin cursor, and
@@ -411,6 +424,18 @@ class ReplicaGroup:
         r = min(elig, key=self._assigned.__getitem__)
         self._assigned[r] += 1
         return r
+
+    def routing(self) -> Routing:
+        """Single-shard replicated wiring for the service (core/api.py):
+        shard 0 everywhere, the group's own read-spreading pick, reads
+        stamped with the serving replica + its snapshot read version."""
+        return Routing(
+            shard_of=lambda key: 0,
+            replica_of=((lambda shard: self.replica_for_dispatch())
+                        if self.n_replicas > 1 else None),
+            report=lambda shard: self.last_dispatch,
+            live_version=lambda shard: int(
+                self.primary.tree.versions.read_version()))
 
     def eligible_replicas(self) -> list[int]:
         """Replica indices a read batch may be pinned to right now: the

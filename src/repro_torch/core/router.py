@@ -30,8 +30,9 @@ facade, with a request router in front:
 ``ShardedHoneycombStore(shards=1)`` is operation-for-operation
 ``HoneycombStore``, and ``replicas=1`` is the unreplicated store.  Every
 snapshot lives on ``device`` (``"cuda"`` unless the caller asks for the
-CPU; without a card it raises, like ``HoneycombStore``).  Not ported yet:
-the service ``routing()`` accessor.
+CPU; without a card it raises, like ``HoneycombStore``), in the layout
+``cfg.layout`` names, which every shard and follower shares.
+``routing()`` gives the service front end (core/api.py) its wiring.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ from typing import Sequence
 
 import torch
 
+from .api import Routing
 from .btree import TreeStats
 from .config import HoneycombConfig, ReplicationConfig, ShardingConfig
 from .keys import int_key
@@ -126,6 +128,17 @@ class ShardedHoneycombStore:
         is a ROUTING decision only; the group still enforces the freshness
         rule at dispatch (a lagging follower is skipped, never stale)."""
         return self.shards[shard].replica_for_dispatch()
+
+    def routing(self) -> Routing:
+        """The routed-store wiring for the service/scheduler (core/api.py):
+        range ownership, per-shard replica spreading, and read-response
+        stamps from the serving group's latest dispatch."""
+        return Routing(
+            shard_of=self.shard_for_key,
+            replica_of=self.replica_for_dispatch,
+            report=lambda shard: self.shards[shard].last_dispatch,
+            live_version=lambda shard: int(
+                self.shards[shard].tree.versions.read_version()))
 
     # ------------------------------------------------------------- writes
     def put(self, key: bytes, value: bytes, thread: int = 0):

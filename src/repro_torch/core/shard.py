@@ -1,5 +1,5 @@
 """StoreShard — one device's slice of the store (port of
-``repro.core.shard``, packed layout).
+``repro.core.shard``).
 
 A host B+Tree writer (``HoneycombTree``), the MVCC/epoch machinery, an
 interior cache and the device read path, bound to a DOUBLE-BUFFERED
@@ -7,9 +7,9 @@ resident device snapshot kept in sync by the incremental delta subsystem:
 
   * ``begin_export()`` / ``flip()`` — the two halves of the host->device
     synchronization point.  ``begin_export`` *stages*: the first export
-    publishes the packed heap image wholesale; afterwards only *dirty node
-    rows* plus the batched page-table commands and the read version are
-    scattered into the STANDBY snapshot, so sync traffic scales with write
+    publishes the heap wholesale; afterwards only *dirty node rows* plus
+    the batched page-table commands and the read version are scattered
+    into the STANDBY snapshot, so sync traffic scales with write
     volume, and in-flight read batches keep answering from the untouched
     active snapshot.  ``flip`` *publishes* the standby (``epoch`` counts
     flips); old-epoch snapshots are separate device tensors and keep
@@ -25,6 +25,13 @@ resident device snapshot kept in sync by the incremental delta subsystem:
     (``kernels/ops.py`` picks the kernel for CUDA tensors and its plain
     version for CPU tensors); SCANs the device truncates fall back to the
     host tree.
+  * ``cfg.layout`` — the snapshot's shape on the device.  "packed" (the
+    default) is ONE ``[S, image_words]`` image: a full publish is one
+    copy and a delta ships one image row per dirty node.  "legacy" keeps
+    one tensor per node field: a full publish is 24 copies, a delta ships
+    24 ``[D, W_f]`` blocks that ONE multi-field scatter applies, and reads
+    go through the per-level ``"reference"`` path, since there is no
+    packed image for the fused kernel to walk.
 
 Every snapshot tensor lives on ``device`` (``"cuda"`` unless the caller
 asks for the CPU).  Publishing copies host arrays explicitly:
@@ -35,9 +42,8 @@ For the log-shipped replication feed (core/replica.py) a replica group
 sets ``log_capture``: every write is then captured with its fast-path
 placement, and a delta staging whose writes all took the leaf fast path
 carries them as one ``LogPayload`` (the op wire stream plus a placement
-sidecar) that followers replay on the device.  Not ported yet: the legacy
-per-field layout (raises), the service ``routing()`` accessor and the
-EpochSan seams.
+sidecar) that followers replay on the device.  Not ported: the EpochSan
+seams (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -49,15 +55,16 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kernel_ops
-from .api import OPS_BY_KIND, Delete, wire_entry_nbytes
+from .api import OPS_BY_KIND, Delete, Routing, wire_entry_nbytes
 from .btree import HoneycombTree
 from .cache import InteriorCache
 from .config import HoneycombConfig, bucket_pow2
 from .keys import pack_keys
 from .pipeline import PipelineStats
-from .read_path import (SnapshotDelta, TreeSnapshot, apply_snapshot_delta,
+from .read_path import (NODE_FIELDS, LegacySnapshotDelta, LegacyTreeSnapshot,
+                        SnapshotDelta, TreeSnapshot, apply_snapshot_delta,
                         attach_cache_image, batched_get, batched_scan)
-from .schema import NodeImageLayout
+from .schema import NARROWED_FIELDS, NodeImageLayout
 from .telemetry import CLOCK, samples_from
 
 _now = CLOCK            # THE injectable monotonic clock (core/telemetry.py)
@@ -76,8 +83,9 @@ class SyncStats:
     log_entries: int = 0          # writes accepted (one log entry each)
     log_wire_bytes: int = 0       # append-only wire-format bytes
     #   (key+value+WIRE_ENTRY_OVERHEAD per write)
-    image_dma_count: int = 0      # node-image copies: ONE per dirty node on
-    #   a delta, one per whole image on a full publish
+    image_dma_count: int = 0      # node-image copies: the packed layout
+    #   makes ONE per dirty node on a delta and one per whole image on a
+    #   full publish; legacy makes one per field per node (24x)
     image_bytes: int = 0          # node-image payload bytes
     log_replays: int = 0          # follower stagings applied by replaying
     #   the epoch's op wire stream on the device (log_replay_scatter)
@@ -104,7 +112,8 @@ class SyncStats:
 class StagedSync:
     """One ``begin_export`` staging as it crossed the bus — the unit a
     follower replica replays (core/replica.py).  ``kind`` is "full" or
-    "delta"; ``delta`` is the staged ``SnapshotDelta`` (None for full
+    "delta"; ``delta`` is the staged ``SnapshotDelta`` or
+    ``LegacySnapshotDelta``, matching ``cfg.layout`` (None for full
     publishes); ``snapshot`` is the staged standby, which doubles as the
     catch-up source for followers that fell out of sync; ``nbytes`` the
     metered traffic and ``delta_rows`` the unpadded dirty-row count;
@@ -116,8 +125,8 @@ class StagedSync:
     None means followers take the image delta, the metered per-epoch
     fallback."""
     kind: str
-    snapshot: TreeSnapshot
-    delta: SnapshotDelta | None
+    snapshot: TreeSnapshot | LegacyTreeSnapshot
+    delta: SnapshotDelta | LegacySnapshotDelta | None
     nbytes: int
     delta_rows: int
     read_version: int
@@ -157,10 +166,6 @@ class StoreShard:
                  heap_capacity: int = 1024, shard_id: int = 0,
                  device: str | torch.device = "cuda"):
         self.cfg = cfg or HoneycombConfig()
-        if self.cfg.layout != "packed":
-            raise NotImplementedError(
-                f"layout={self.cfg.layout!r} is not ported; the port serves "
-                f"the packed node image only")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -283,6 +288,16 @@ class StoreShard:
         """Read version of the active snapshot — what a device batch that
         just dispatched here answered at (0 before the first publish)."""
         return self._snapshot_rv if self._snapshot_rv is not None else 0
+
+    def routing(self) -> Routing:
+        """The single-shard wiring for the service/scheduler (core/api.py):
+        everything routes to shard 0, no replica spreading, reads stamped
+        with the active snapshot's read version."""
+        return Routing(
+            shard_of=lambda key: 0,
+            replica_of=None,
+            report=lambda shard: (0, self.serving_version),
+            live_version=lambda shard: int(self.tree.versions.read_version()))
 
     # ------------------------------------------------- snapshot mechanics
     def begin_export(self, force: bool = False, full: bool = False) -> bool:
@@ -430,15 +445,25 @@ class StoreShard:
         assert a.dtype == np.int32, a.dtype
         return torch.from_numpy(a).to(self.device, copy=True)
 
-    def _publish_full(self) -> TreeSnapshot:
-        """Wholesale republish: the whole store crosses the bus as ONE
-        contiguous [S, image_words] image copy (plus the page table)."""
+    def _publish_full(self):
+        """Wholesale republish: the whole store crosses the bus — ONE
+        contiguous [S, image_words] image copy on the packed layout, one
+        tensor per field on legacy (same bytes, 24x the copies) — plus the
+        page table."""
         t = self.tree
         h = t.heap
         pt_image = t.pt.flush_to_device()
         stats = self.sync_stats
         layout = NodeImageLayout.for_config(self.cfg)
         stats.image_bytes += h.capacity * layout.node_image_bytes
+        if self.cfg.layout == "legacy":
+            stats.image_dma_count += len(NODE_FIELDS)
+            fields = {f: self._dev(self._field_rows(f)) for f in NODE_FIELDS}
+            stats.bytes_synced += pt_image.nbytes + sum(
+                x.nbytes for x in fields.values())
+            return LegacyTreeSnapshot(
+                pagetable=self._dev(pt_image), root_lid=int(t.root_lid),
+                read_version=int(t.versions.read_version()), **fields)
         img = layout.pack(h)
         stats.bytes_synced += img.nbytes + pt_image.nbytes
         stats.image_dma_count += 1
@@ -451,13 +476,21 @@ class StoreShard:
         # shipped — only the ~KB LID vector crossed the bus
         return attach_cache_image(snap, self.cfg)
 
-    def _publish_delta(self, base: TreeSnapshot,
-                       rows: np.ndarray) -> TreeSnapshot:
+    def _field_rows(self, f: str, rows: np.ndarray | None = None):
+        """Field ``f`` of the heap (of ``rows`` only, when given) as it
+        crosses the bus on the legacy layout: 64-bit and byte-wide host
+        fields narrowed to int32 (``_dev`` makes the device copy)."""
+        arr = getattr(self.tree.heap, f)
+        arr = arr[rows] if rows is not None else arr
+        return arr.astype(np.int32) if f in NARROWED_FIELDS else arr
+
+    def _publish_delta(self, base, rows: np.ndarray):
         """Incremental sync: scatter dirty node rows and pending page-table
         commands over ``base`` (the standby-in-progress, or the active
-        snapshot when none is staged).  Moves (and meters) O(dirty) bytes;
-        each dirty node is ONE contiguous image row (``image_dma_count``
-        grows by exactly len(rows))."""
+        snapshot when none is staged).  Moves (and meters) O(dirty) bytes.
+        Packed: each dirty node is ONE contiguous image row
+        (``image_dma_count`` grows by exactly len(rows)); legacy ships the
+        same bytes as one row block per field (24 copies per node)."""
         t = self.tree
         h = t.heap
         stats = self.sync_stats
@@ -472,15 +505,28 @@ class StoreShard:
         rows_p = self._pad_index(rows, bucket_pow2(len(rows)))
         lids_p = self._pad_index(pt_lids, bucket_pow2(len(pt_lids)))
         phys_p = t.pt.device_image[lids_p]
+        # both layouts move image_words * 4 bytes per UNPADDED dirty node;
+        # only the copy count differs
         node_bytes = len(rows) * layout.node_image_bytes
         stats.image_bytes += node_bytes
-        stats.image_dma_count += len(rows)
-        delta = SnapshotDelta(
-            rows=self._dev(rows_p), image=self._dev(layout.pack(h, rows_p)),
-            pt_lids=self._dev(lids_p), pt_phys=self._dev(phys_p),
-            root_lid=int(t.root_lid),
-            read_version=int(t.versions.read_version()),
-            cache_lids=self._dev(self.cache.device_lids()))
+        if self.cfg.layout == "legacy":
+            stats.image_dma_count += len(rows) * len(NODE_FIELDS)
+            delta = LegacySnapshotDelta(
+                rows=self._dev(rows_p),
+                pt_lids=self._dev(lids_p), pt_phys=self._dev(phys_p),
+                root_lid=int(t.root_lid),
+                read_version=int(t.versions.read_version()),
+                **{f: self._dev(self._field_rows(f, rows_p))
+                   for f in NODE_FIELDS})
+        else:
+            stats.image_dma_count += len(rows)
+            delta = SnapshotDelta(
+                rows=self._dev(rows_p),
+                image=self._dev(layout.pack(h, rows_p)),
+                pt_lids=self._dev(lids_p), pt_phys=self._dev(phys_p),
+                root_lid=int(t.root_lid),
+                read_version=int(t.versions.read_version()),
+                cache_lids=self._dev(self.cache.device_lids()))
         stats.bytes_synced += pt_lids.nbytes + pt_phys.nbytes + node_bytes
         self._staged_delta = delta
         return apply_snapshot_delta(base, delta, cfg=self.cfg)
@@ -494,6 +540,17 @@ class StoreShard:
             [idx, np.full(size - len(idx), idx[-1], np.int32)])
 
     # ------------------------------------------------- accelerated reads
+    def _read_backend(self) -> str:
+        """The read path of this shard's snapshots, a rule of the
+        configuration: a legacy snapshot has no packed image for the fused
+        kernel, so it is read through the per-level ``"reference"`` path;
+        a packed one through ``cfg.read_backend``.  (A packed snapshot
+        without its cache tier is never quietly read another way: the
+        fused read raises on it.)"""
+        if self.cfg.layout == "legacy":
+            return "reference"
+        return self.cfg.read_backend
+
     def _note_read_meters(self, meters: torch.Tensor):
         """Fold one fused dispatch's device meters into CacheStats."""
         vh, hg, lr = meters.tolist()
@@ -532,7 +589,7 @@ class StoreShard:
         self.pipeline_stats.dispatched_lanes += len(keys)
         self.pipeline_stats.padded_lanes += len(padded)
         lanes, lens = pack_keys(padded, self.cfg.key_words)
-        rb = self.cfg.read_backend
+        rb = self._read_backend()
         kernel_ops.record_read_dispatch("get", rb, self.cfg)
         lo, hi = self.tree.epochs.accel_begin_batch(len(keys))
         try:
@@ -575,7 +632,7 @@ class StoreShard:
         self.pipeline_stats.padded_lanes += len(padded)
         lo_l, lo_n = pack_keys([r[0] for r in padded], self.cfg.key_words)
         hi_l, hi_n = pack_keys([r[1] for r in padded], self.cfg.key_words)
-        rb = self.cfg.read_backend
+        rb = self._read_backend()
         kernel_ops.record_read_dispatch("scan", rb, self.cfg)
         slo, shi = self.tree.epochs.accel_begin_batch(len(ranges))
         try:

@@ -1,22 +1,56 @@
-"""Telemetry primitives the stats dataclasses need (port of part of
-``repro.core.telemetry``).
+"""Unified telemetry: ONE metrics registry, log-bucketed latency
+histograms and sampled per-request lifecycle tracing (port of
+``repro.core.telemetry``, pure Python).
 
-``Clock``/``CLOCK`` is THE injectable monotonic clock every timing site
-reads (core/shard.py aliases it as ``_now``), and ``samples_from`` is the
-shared ``collect()`` implementation of ``SyncStats``, ``TreeStats``,
-``PipelineStats``, ``CacheStats`` and ``FeedStats``; ``merge_stats`` is
-the one aggregation path the router and the replica group use.  The
-metrics registry, histograms, tracer and exporters come with the service
-layer.
+  * ``MetricsRegistry`` — counters, gauges and log-bucketed latency
+    ``Histogram``s (p50/p95/p99/p999), plus registered *sources*: any
+    object with a ``collect()`` method (or a zero-arg callable returning
+    samples) is re-read at every ``collect()``/export, so snapshots are
+    always current.  Every stats dataclass of the port (``SyncStats``,
+    ``TreeStats``, ``PipelineStats``, ``CacheStats``, ``FeedStats``) and
+    ``kernels/ops.py``'s read-dispatch meter speak that protocol, through
+    ``samples_from``.
+  * ``Tracer`` — sampled per-request ``Trace``s with spans across the
+    ticket lifecycle (submit -> admit -> export_stage -> flip -> dispatch
+    -> resolve), tagged with (shard, replica, epoch, serving_version) and
+    kept in a bounded ring; sampling is deterministic (every
+    ``round(1/rate)``-th request) and rate 0 builds no tracer at all.
+  * Exporters — Prometheus text (``to_prometheus``, read back by
+    ``parse_prometheus``/``prom_value``), a JSON snapshot, and Chrome
+    trace-event JSON (``chrome_trace_events``, loadable in Perfetto).
+  * ``Clock``/``CLOCK`` — THE injectable monotonic clock every timing site
+    reads (shard, replica and scheduler alias it as ``_now``), and
+    ``merge_stats``, the one aggregation path of the router and the
+    replica group.
+
+``HoneycombService`` (core/api.py) builds a ``Telemetry`` bundle from
+``ServiceConfig.telemetry``, ``wire_store`` registers every stats surface
+the facade exposes, and the scheduler records the GET/SCAN latency
+histograms at dispatch and drives the tracer.  The metric names, their
+labels and the histogram geometry (``buckets_per_decade`` geometric
+buckets per decade over [lo, hi) plus under/overflow; a percentile is the
+geometric midpoint of its rank's bucket clamped to the observed
+[min, max]) are the reference's, so both packages export the same text
+for the same meters.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
+import re
 import time
-from typing import Any, Iterable
+from collections import deque
+from typing import Any, Callable, Iterable
 
-__all__ = ["CLOCK", "Clock", "MetricSample", "merge_stats", "samples_from"]
+from .config import TelemetryConfig
+
+__all__ = [
+    "CLOCK", "Clock", "Counter", "Gauge", "Histogram", "MetricSample",
+    "MetricsRegistry", "Span", "Telemetry", "Trace", "Tracer",
+    "chrome_trace_events", "merge_stats", "parse_prometheus", "prom_value",
+    "samples_from",
+]
 
 
 class Clock:
@@ -63,11 +97,20 @@ CLOCK = Clock()
 
 @dataclasses.dataclass
 class MetricSample:
-    """One collected observation (counters and gauges carry a float)."""
+    """One collected observation.  ``value`` is a float for counters and
+    gauges and the ``Histogram`` object itself for histograms (exporters
+    render quantiles/sum/count from it)."""
     name: str
     kind: str                    # "counter" | "gauge" | "histogram"
     value: Any
     labels: dict = dataclasses.field(default_factory=dict)
+
+    def key(self) -> str:
+        """Stable flat key: ``name{k=v,...}`` (name alone when unlabeled)."""
+        if not self.labels:
+            return self.name
+        inner = ",".join(f"{k}={self.labels[k]}" for k in sorted(self.labels))
+        return f"{self.name}{{{inner}}}"
 
 
 def samples_from(obj, prefix: str, layer: str,
@@ -110,3 +153,504 @@ def merge_stats(parts, factory):
                 setattr(agg, f.name,
                         getattr(agg, f.name) + getattr(p, f.name))
     return agg
+
+
+# -------------------------------------------------------------- instruments
+class Counter:
+    """Monotone accumulator (registry-owned; layer meters stay dataclasses
+    and come in through ``collect()`` sources instead)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        self.value += n
+
+
+class Gauge:
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
+
+
+class Histogram:
+    """Log-bucketed latency histogram: geometric buckets over
+    [``lo``, ``hi``) at ``buckets_per_decade`` resolution, plus
+    underflow/overflow buckets.  See the module docstring for the accuracy
+    contract; ``record(v, n)`` is weighted so a per-batch device time can
+    be spread over the batch's requests with one call."""
+
+    __slots__ = ("lo", "hi", "bpd", "counts", "count", "total",
+                 "vmin", "vmax")
+
+    def __init__(self, lo: float = 1e-7, hi: float = 1e3,
+                 buckets_per_decade: int = 16):
+        assert lo > 0 and hi > lo and buckets_per_decade >= 1
+        self.lo, self.hi, self.bpd = lo, hi, buckets_per_decade
+        n = int(math.ceil(math.log10(hi / lo) * buckets_per_decade))
+        self.counts = [0] * (n + 2)      # [underflow] + n buckets + [overflow]
+        self.count = 0
+        self.total = 0.0
+        self.vmin = math.inf
+        self.vmax = -math.inf
+
+    def _index(self, v: float) -> int:
+        if v < self.lo:
+            return 0
+        if v >= self.hi:
+            return len(self.counts) - 1
+        i = 1 + int(math.log10(v / self.lo) * self.bpd)
+        return min(i, len(self.counts) - 2)
+
+    def _bounds(self, i: int) -> tuple[float, float]:
+        if i == 0:
+            return 0.0, self.lo
+        if i == len(self.counts) - 1:
+            return self.hi, math.inf
+        return (self.lo * 10.0 ** ((i - 1) / self.bpd),
+                self.lo * 10.0 ** (i / self.bpd))
+
+    def record(self, v: float, n: int = 1) -> None:
+        if n <= 0:
+            return
+        self.counts[self._index(v)] += n
+        self.count += n
+        self.total += v * n
+        self.vmin = min(self.vmin, v)
+        self.vmax = max(self.vmax, v)
+
+    def merge(self, other: "Histogram") -> None:
+        assert (self.lo, self.hi, self.bpd) == \
+            (other.lo, other.hi, other.bpd), "histogram geometry mismatch"
+        for i, c in enumerate(other.counts):
+            self.counts[i] += c
+        self.count += other.count
+        self.total += other.total
+        self.vmin = min(self.vmin, other.vmin)
+        self.vmax = max(self.vmax, other.vmax)
+
+    def percentile(self, p: float) -> float:
+        """Value at percentile ``p`` (0-100): geometric midpoint of the
+        rank's bucket, clamped to the observed [min, max]."""
+        if not self.count:
+            return 0.0
+        rank = max(1, math.ceil(p / 100.0 * self.count))
+        seen = 0
+        for i, c in enumerate(self.counts):
+            seen += c
+            if seen >= rank:
+                blo, bhi = self._bounds(i)
+                if i == 0:
+                    mid = self.vmin
+                elif i == len(self.counts) - 1:
+                    mid = self.vmax
+                else:
+                    mid = math.sqrt(blo * bhi)
+                return min(max(mid, self.vmin), self.vmax)
+        return self.vmax
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+    def quantiles(self) -> dict:
+        return {"p50": self.percentile(50), "p95": self.percentile(95),
+                "p99": self.percentile(99), "p999": self.percentile(99.9)}
+
+    def to_dict(self) -> dict:
+        out = {"count": self.count, "sum": self.total, "mean": self.mean,
+               "min": self.vmin if self.count else 0.0,
+               "max": self.vmax if self.count else 0.0}
+        out.update(self.quantiles())
+        return out
+
+
+# ---------------------------------------------------------------- registry
+class MetricsRegistry:
+    """One registry per ``Telemetry`` bundle: owns its counters/gauges/
+    histograms (get-or-create by (name, labels)) and any number of
+    registered SOURCES — zero-arg callables returning either an object
+    with ``collect()`` or an iterable of samples (``MetricSample`` or
+    ``(name, kind, value[, labels])`` tuples, the dependency-free form
+    kernels/ops.py uses).  Sources are re-invoked on every ``collect()``,
+    so exports always reflect live meter state."""
+
+    def __init__(self):
+        self._own: dict[tuple, tuple[str, Any]] = {}
+        self._sources: list[tuple[Callable[[], Any], dict]] = []
+
+    # ------------------------------------------------------- instruments
+    def _get(self, name: str, kind: str, make, labels: dict):
+        key = (name, tuple(sorted(labels.items())))
+        hit = self._own.get(key)
+        if hit is None:
+            hit = (kind, make())
+            self._own[key] = hit
+        assert hit[0] == kind, f"{name} already registered as {hit[0]}"
+        return hit[1]
+
+    def counter(self, name: str, **labels) -> Counter:
+        return self._get(name, "counter", Counter, labels)
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._get(name, "gauge", Gauge, labels)
+
+    def histogram(self, name: str, lo: float = 1e-7, hi: float = 1e3,
+                  buckets_per_decade: int = 16, **labels) -> Histogram:
+        return self._get(name, "histogram",
+                         lambda: Histogram(lo, hi, buckets_per_decade),
+                         labels)
+
+    # ----------------------------------------------------------- sources
+    def register(self, source, **labels) -> None:
+        """Register a live stats source.  ``source`` is a zero-arg
+        callable (preferred — re-read every collect) or an object with a
+        ``collect()`` method; extra ``labels`` are stamped onto every
+        sample it yields (e.g. ``src="scheduler"`` to keep two
+        ``pipeline_*`` surfaces apart)."""
+        fn = source if callable(source) else (lambda: source)
+        self._sources.append((fn, labels))
+
+    @staticmethod
+    def _as_sample(x, extra: dict) -> MetricSample:
+        if isinstance(x, MetricSample):
+            s = x
+        else:
+            name, kind, value = x[0], x[1], x[2]
+            labels = dict(x[3]) if len(x) > 3 else {}
+            s = MetricSample(name, kind, value, labels)
+        if extra:
+            s = MetricSample(s.name, s.kind, s.value, {**s.labels, **extra})
+        return s
+
+    def collect(self) -> list[MetricSample]:
+        out = []
+        for (name, litems), (kind, inst) in self._own.items():
+            value = inst if kind == "histogram" else inst.value
+            out.append(MetricSample(name, kind, value, dict(litems)))
+        for fn, extra in self._sources:
+            got = fn()
+            if got is None:
+                continue
+            if hasattr(got, "collect"):
+                got = got.collect()
+            for x in got:
+                out.append(self._as_sample(x, extra))
+        return out
+
+    # --------------------------------------------------------- exporters
+    def snapshot(self) -> dict:
+        """JSON-able flat snapshot: ``{key: value}`` with histograms
+        rendered to their count/sum/quantile dicts."""
+        out = {}
+        for s in self.collect():
+            out[s.key()] = (s.value.to_dict()
+                            if isinstance(s.value, Histogram) else s.value)
+        return out
+
+    def to_prometheus(self, prefix: str = "hc") -> str:
+        """Prometheus text exposition (histograms as summaries)."""
+        lines = []
+        typed: set[str] = set()
+        for s in self.collect():
+            name = _prom_name(f"{prefix}_{s.name}")
+            if isinstance(s.value, Histogram):
+                if name not in typed:
+                    typed.add(name)
+                    lines.append(f"# TYPE {name} summary")
+                h = s.value
+                for q, pct in (("0.5", 50), ("0.95", 95), ("0.99", 99),
+                               ("0.999", 99.9)):
+                    lines.append(f"{name}{_prom_labels(s.labels, quantile=q)}"
+                                 f" {h.percentile(pct):g}")
+                lines.append(f"{name}_sum{_prom_labels(s.labels)}"
+                             f" {h.total:g}")
+                lines.append(f"{name}_count{_prom_labels(s.labels)}"
+                             f" {h.count:g}")
+            else:
+                if name not in typed:
+                    typed.add(name)
+                    lines.append(f"# TYPE {name} {s.kind}")
+                lines.append(f"{name}{_prom_labels(s.labels)} {s.value:g}")
+        return "\n".join(lines) + "\n"
+
+
+def _prom_name(name: str) -> str:
+    return re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+
+
+def _prom_labels(labels: dict, **extra) -> str:
+    merged = {**labels, **extra}
+    if not merged:
+        return ""
+    inner = ",".join(f'{_prom_name(k)}="{merged[k]}"'
+                     for k in sorted(merged))
+    return "{" + inner + "}"
+
+
+_PROM_LINE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)"
+                        r"(?:\{(.*)\})?\s+(\S+)$")
+_PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="([^"]*)"')
+
+
+def parse_prometheus(text: str) -> dict:
+    """Parse the text exposition back into ``{name: [(labels, value)]}``
+    — the reading half of the Prometheus round trip.  Raises
+    ``ValueError`` on any non-comment line that does not parse."""
+    out: dict[str, list] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _PROM_LINE.match(line)
+        if m is None:
+            raise ValueError(f"unparseable Prometheus line: {line!r}")
+        name, rawlabels, raw = m.groups()
+        labels = dict(_PROM_LABEL.findall(rawlabels)) if rawlabels else {}
+        out.setdefault(name, []).append((labels, float(raw)))
+    return out
+
+
+def prom_value(parsed: dict, name: str, **labels) -> float:
+    """Sum of every ``name`` series whose labels include ``labels``."""
+    return sum(v for ls, v in parsed.get(name, ())
+               if all(ls.get(k) == str(w) for k, w in labels.items()))
+
+
+# ----------------------------------------------------------------- tracing
+@dataclasses.dataclass
+class Span:
+    """One lifecycle stage of a traced request (``t0 == t1`` marks an
+    instant event, e.g. submit/resolve)."""
+    name: str
+    t0: float
+    t1: float
+    tags: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class Trace:
+    """One sampled request's full lifecycle.  ``tags`` accumulates the
+    response stamps at finish: shard, replica, epoch, serving_version,
+    status."""
+    rid: int
+    kind: str
+    t0: float
+    t1: float = 0.0
+    spans: list = dataclasses.field(default_factory=list)
+    tags: dict = dataclasses.field(default_factory=dict)
+
+    def span_names(self) -> list[str]:
+        return [s.name for s in self.spans]
+
+
+class Tracer:
+    """Deterministic sampled request tracing: every ``round(1/rate)``-th
+    submitted request gets a live ``Trace``; finished traces land in a
+    bounded ring (``deque(maxlen=capacity)``).  The scheduler only calls
+    in through ``is_live``/``span``/``span_all``, all of which are no-ops
+    (and allocation-free) for unsampled rids."""
+
+    def __init__(self, sample_rate: float, capacity: int = 256,
+                 clock: Clock | None = None):
+        assert 0.0 < sample_rate <= 1.0, "tracer needs a rate in (0, 1]"
+        assert capacity >= 1
+        self.period = max(1, round(1.0 / sample_rate))
+        self.clock = clock or CLOCK
+        self.sampled = 0
+        self._seen = 0
+        self._live: dict[int, Trace] = {}
+        self.traces: deque[Trace] = deque(maxlen=capacity)
+
+    @property
+    def live_count(self) -> int:
+        return len(self._live)
+
+    def live_rids(self) -> list[int]:
+        return list(self._live)
+
+    def is_live(self, rid: int) -> bool:
+        return rid in self._live
+
+    def begin(self, rid: int, kind: str, **tags) -> Trace | None:
+        """Sampling decision + submit instant; returns the live trace or
+        None (the unsampled fast path allocates nothing)."""
+        self._seen += 1
+        if (self._seen - 1) % self.period:
+            return None
+        now = self.clock()
+        t = Trace(rid=rid, kind=kind, t0=now, tags=dict(tags))
+        t.spans.append(Span("submit", now, now))
+        self._live[rid] = t
+        self.sampled += 1
+        return t
+
+    def span(self, rid: int, name: str, t0: float, t1: float,
+             **tags) -> None:
+        t = self._live.get(rid)
+        if t is not None:
+            t.spans.append(Span(name, t0, t1, dict(tags) if tags else {}))
+
+    def span_all(self, name: str, t0: float, t1: float, **tags) -> None:
+        """Attach one span to every live trace (the export/flip stages
+        cover the whole epoch, not one request)."""
+        for t in self._live.values():
+            t.spans.append(Span(name, t0, t1, dict(tags) if tags else {}))
+
+    def finish(self, rid: int, **tags) -> Trace | None:
+        t = self._live.pop(rid, None)
+        if t is None:
+            return None
+        now = self.clock()
+        t.spans.append(Span("resolve", now, now))
+        t.tags.update(tags)
+        t.t1 = now
+        self.traces.append(t)
+        return t
+
+    def collect(self) -> list[tuple]:
+        return [("traces_sampled", "counter", self.sampled,
+                 {"layer": "tracer"}),
+                ("traces_retained", "gauge", len(self.traces),
+                 {"layer": "tracer"}),
+                ("traces_live", "gauge", len(self._live),
+                 {"layer": "tracer"})]
+
+
+def chrome_trace_events(traces: Iterable[Trace]) -> dict:
+    """Chrome trace-event JSON (Perfetto / chrome://tracing loadable):
+    one complete ("ph": "X") event per span, pid = shard, tid = rid,
+    timestamps in microseconds, tags in ``args``."""
+    evs = []
+    for t in traces:
+        for s in t.spans:
+            evs.append({
+                "name": s.name, "ph": "X", "cat": t.kind,
+                "ts": s.t0 * 1e6, "dur": max((s.t1 - s.t0) * 1e6, 0.0),
+                "pid": int(t.tags.get("shard", 0)), "tid": t.rid,
+                "args": {**t.tags, **s.tags, "rid": t.rid, "kind": t.kind},
+            })
+    return {"traceEvents": evs, "displayTimeUnit": "ms"}
+
+
+# ------------------------------------------------------------------ bundle
+class Telemetry:
+    """Registry + (optional) tracer behind one handle, with the wiring
+    helpers the service layer uses.  Constructed by ``HoneycombService``
+    from ``ServiceConfig.telemetry`` when enabled; standalone use is one
+    line: ``tm = Telemetry(); tm.wire_store(store)``."""
+
+    def __init__(self, cfg: TelemetryConfig | None = None,
+                 clock: Clock | None = None):
+        self.cfg = cfg or TelemetryConfig()
+        self.clock = clock or CLOCK
+        self.registry = MetricsRegistry()
+        self.tracer = (Tracer(self.cfg.trace_sample_rate,
+                              self.cfg.trace_capacity, self.clock)
+                       if self.cfg.trace_sample_rate > 0 else None)
+        if self.tracer is not None:
+            self.registry.register(self.tracer.collect)
+
+    @property
+    def enabled(self) -> bool:
+        return self.cfg.enabled
+
+    def histogram(self, name: str, **labels) -> Histogram:
+        return self.registry.histogram(
+            name, lo=self.cfg.latency_lo, hi=self.cfg.latency_hi,
+            buckets_per_decade=self.cfg.buckets_per_decade, **labels)
+
+    # ------------------------------------------------------------ wiring
+    def wire_store(self, store) -> "Telemetry":
+        """Register every stats surface the facade exposes.  Probes by
+        meter property name, so it works across the whole facade family
+        (``StoreShard``/``HoneycombStore``, ``ShardedHoneycombStore``,
+        bare ``ReplicaGroup``) — absent surfaces are skipped."""
+        reg = self.registry
+        reg.register(lambda: store.sync_stats, src="primary")
+        reg.register(lambda: store.stats)                     # TreeStats
+        if hasattr(store, "pipeline_stats"):
+            reg.register(lambda: store.pipeline_stats, src="store")
+        if hasattr(store, "cache_stats"):
+            reg.register(lambda: store.cache_stats)
+        if hasattr(store, "feed_stats"):
+            reg.register(lambda: store.feed_stats)
+            reg.register(lambda: store.replication_stats, src="followers")
+        self.wire_kernel_meter()
+        return self
+
+    def wire_scheduler(self, sched) -> "Telemetry":
+        self.registry.register(lambda: sched.stats, src="scheduler")
+
+        def _sched_meters():
+            lab = {"layer": "scheduler"}
+            return [
+                ("scheduler_dispatched_batches", "counter",
+                 sched.dispatched_batches, lab),
+                ("scheduler_dispatched_requests", "counter",
+                 sched.dispatched_requests, lab),
+                ("scheduler_applied_writes", "counter",
+                 sched.applied_writes, lab),
+                ("scheduler_syncs", "counter", sched.syncs, lab),
+            ]
+        self.registry.register(_sched_meters)
+        return self
+
+    def wire_kernel_meter(self) -> None:
+        """The READ_DISPATCHES launch counter (kernels/ops.py).  Imported
+        at collect time: kernels/ops.py imports core modules, so this
+        module may not import it at load."""
+        def _kernel_samples():
+            from ..kernels import ops as kernel_ops
+            return kernel_ops.collect()
+        self.registry.register(_kernel_samples)
+
+    # --------------------------------------------------------- exporters
+    def collect(self) -> list[MetricSample]:
+        return self.registry.collect()
+
+    def snapshot(self) -> dict:
+        return self.registry.snapshot()
+
+    def to_prometheus(self, prefix: str = "hc") -> str:
+        return self.registry.to_prometheus(prefix)
+
+    def traces(self) -> list[Trace]:
+        return list(self.tracer.traces) if self.tracer is not None else []
+
+    def chrome_trace(self) -> dict:
+        return chrome_trace_events(self.traces())
+
+    # ------------------------------------------------------------ lookup
+    def value(self, name: str, **labels) -> float:
+        """Sum of every matching counter/gauge sample, so a report reads
+        the registry, not the layer dataclasses."""
+        tot = 0.0
+        for s in self.collect():
+            if s.name == name and not isinstance(s.value, Histogram) and \
+                    all(s.labels.get(k) == v for k, v in labels.items()):
+                tot += s.value
+        return tot
+
+    def quantile(self, name: str, p: float, **labels) -> float:
+        """Percentile ``p`` over every matching histogram (merged)."""
+        merged = None
+        for s in self.collect():
+            if s.name == name and isinstance(s.value, Histogram) and \
+                    all(s.labels.get(k) == v for k, v in labels.items()):
+                if merged is None:
+                    merged = Histogram(s.value.lo, s.value.hi, s.value.bpd)
+                merged.merge(s.value)
+        return merged.percentile(p) if merged is not None else 0.0
+
+    def summary(self) -> dict:
+        """Flat JSON-able registry view keyed ``name{labels}`` (scalars
+        verbatim, histograms as quantile dicts) — what the benchmarks
+        attach next to their results."""
+        return self.registry.snapshot()

@@ -27,10 +27,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"fused_get": 0, "fused_scan": 0, "row_scatter": 0,
-            "log_replay": 0}
+            "log_replay": 0, "multi_scatter": 0}
 
 #: every CUDA source of the port, by name (``csrc/<name>.cu``)
-SOURCES = ("fused_read", "row_scatter", "log_replay")
+SOURCES = ("fused_read", "row_scatter", "log_replay", "multi_scatter")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

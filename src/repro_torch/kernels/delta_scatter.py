@@ -1,6 +1,7 @@
 """Snapshot scatters on the GPU (port of
 ``repro.kernels.delta_scatter``: ``snapshot_delta_scatter`` /
-``snapshot_image_scatter`` and ``log_replay_scatter``).
+``snapshot_image_scatter``, ``snapshot_multi_scatter`` and
+``log_replay_scatter``).
 
 Delta sync: one sync's dirty node rows arrive as a dense [D, W] update
 block plus a [D] row-index vector; the kernel (``csrc/row_scatter.cu``)
@@ -8,6 +9,10 @@ copies each update row over the matching row of the resident [S, W] image
 in place.  This is the device half of the PCIe analogue: the host ships
 O(dirty) bytes and the device image is patched, never rebuilt.  Repeated
 rows must carry identical data, which keeps the scatter order-free.
+
+Legacy layout: the snapshot keeps one tensor per node field, so a delta
+ships 24 [D, W_f] blocks; ``csrc/multi_scatter.cu`` scatters the dirty
+rows of every field in one launch, the field table passed by value.
 
 Log replay: a follower replica applies one epoch's marshalled wire
 entries to its own image (``csrc/log_replay.cu``): each entry moves only
@@ -26,6 +31,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "row_scatter": [_P, _I, _I, _P, _P, _I, _P],
+    # dst pointers, upd pointers, widths, nf, S, rows, D, stream
+    "multi_scatter": [_P, _P, _P, _I, _I, _P, _I, _P],
     # image, S, IW, rows, slots, entries, D, EW, 11 layout offsets, stream
     "log_replay": [_P, _I, _I, _P, _P, _P, _I, _I] + [_I] * 11 + [_P],
 }
@@ -77,6 +84,55 @@ def snapshot_image_scatter(image: torch.Tensor, rows: torch.Tensor,
     """image[rows[i], :] = upd[i, :] — ONE contiguous image-row copy per
     dirty node (the packed layout's whole sync), in place on CUDA."""
     return snapshot_delta_scatter(image, rows, upd)
+
+
+#: fields one multi-scatter launch takes (csrc/multi_scatter.cu kMaxFields)
+MAX_FIELDS = 32
+
+
+def snapshot_multi_scatter(dsts, rows: torch.Tensor, upd) -> tuple:
+    """dsts[f][rows[i], :] = upd[f][i, :] for every field f and dirty row
+    i, in place on CUDA, in ONE launch (the legacy layout's delta sync).
+
+    dsts: sequence of [S, W_f] resident field tensors (trailing dims
+          flattened by the caller), 4-byte elements, the same S each
+    rows: [D] int32 target rows (repeats allowed with identical data)
+    upd:  matching sequence of [D, W_f] replacement rows, each of its
+          field's dtype
+    Returns ``dsts`` as a tuple."""
+    dsts, upd = tuple(dsts), tuple(upd)
+    nf = len(dsts)
+    if not 1 <= nf <= MAX_FIELDS or len(upd) != nf:
+        raise ValueError(f"need 1 to {MAX_FIELDS} fields with one update "
+                         f"block each, got {nf} and {len(upd)}")
+    build.check_tensor(rows, "rows", 1)
+    if rows.dtype != torch.int32:
+        raise ValueError("rows must be int32")
+    S, D = dsts[0].shape[0], rows.shape[0]
+    for f, (d, u) in enumerate(zip(dsts, upd)):
+        build.check_tensor(d, f"dsts[{f}]", 2, rows.device)
+        build.check_tensor(u, f"upd[{f}]", 2, rows.device)
+        if u.dtype != d.dtype:
+            raise ValueError(f"upd[{f}] is {u.dtype}, its field {d.dtype}")
+        if d.shape[0] != S or u.shape != (D, d.shape[1]):
+            raise ValueError(f"field {f}: need dst [{S}, W] and upd "
+                             f"[{D}, W], got {tuple(d.shape)} and "
+                             f"{tuple(u.shape)}")
+    if D == 0:
+        return dsts
+    ref.check_rows(rows, S)        # as the plain version, before writing
+    lib = _lib("multi_scatter")
+    ptrs = ctypes.c_void_p * nf
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = lib.multi_scatter_launch(
+            ptrs(*(d.data_ptr() for d in dsts)),
+            ptrs(*(u.data_ptr() for u in upd)),
+            (ctypes.c_int * nf)(*(d.shape[1] for d in dsts)), nf, S,
+            rows.data_ptr(), D, stream)
+    build.check(err, "multi_scatter")
+    build.LAUNCHES["multi_scatter"] += 1
+    return dsts
 
 
 def log_replay_scatter(image: torch.Tensor, rows: torch.Tensor,

@@ -2,8 +2,8 @@
 
 The tensor's device selects the implementation: a CPU tensor runs the
 plain PyTorch version (``kernels/ref.py``), a CUDA tensor launches the
-hand-written kernel (``delta_scatter.py``: row scatter and log replay;
-``fused_read.py``), and any other device raises.  A CUDA call never falls
+hand-written kernel (``delta_scatter.py``: row scatter, multi-field
+scatter and log replay; ``fused_read.py``), and any other device raises.  A CUDA call never falls
 back to the plain version.
 
 ``READ_DISPATCHES`` meters dispatched launches per read batch, recorded
@@ -108,6 +108,17 @@ def snapshot_image_scatter(image, rows, upd):
     if _on_cuda(image):
         return _ds.snapshot_image_scatter(image, rows, upd)
     return _ref.snapshot_image_scatter_ref(image, rows, upd)
+
+
+def snapshot_multi_scatter(dsts, rows, upd):
+    """Apply one delta sync to EVERY per-field tensor of a legacy-layout
+    snapshot, in place, in one call: dsts[f][rows[i]] = upd[f][i] with
+    ``dsts``/``upd`` matching sequences of [S, W_f]/[D, W_f] tensors.
+    Returns ``dsts`` as a tuple."""
+    dsts = tuple(dsts)
+    if _on_cuda(dsts[0]):
+        return _ds.snapshot_multi_scatter(dsts, rows, upd)
+    return _ref.snapshot_multi_scatter_ref(dsts, rows, upd)
 
 
 def log_replay_scatter(image, rows, slots, entries, *, offs):

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels (port of the
 oracles in ``repro.kernels.ref``: the fused reads, the delta-sync row
-scatter and the log-replay scatter).
+scatter, the legacy layout's multi-field scatter and the log-replay
+scatter).
 
 The kernel wrappers (``delta_scatter.py``, ``fused_read.py``) are held to
 these bit for bit, and ``ops.py`` runs them for tensors on the CPU.
@@ -37,6 +38,21 @@ def snapshot_image_scatter_ref(image: torch.Tensor, rows: torch.Tensor,
     """Packed node-image row scatter, in place: image[rows[i]] = upd[i] —
     one whole node image per dirty row (same duplicates contract)."""
     return snapshot_delta_scatter_ref(image, rows, upd)
+
+
+def snapshot_multi_scatter_ref(dsts, rows: torch.Tensor, upd):
+    """Legacy-layout delta scatter over every field, in place:
+    dsts[f][rows[i]] = upd[f][i] for each field f; returns ``dsts`` as a
+    tuple.  ``dsts[f]`` is [S, W_f], ``upd[f]`` is [D, W_f] (trailing dims
+    flattened by the caller).  Rows are checked against S before any
+    field is written; duplicate rows carry identical data."""
+    dsts, upd = tuple(dsts), tuple(upd)
+    if dsts:
+        check_rows(rows, dsts[0].shape[0])
+    idx = rows.long()
+    for d, u in zip(dsts, upd):
+        d[idx] = u
+    return dsts
 
 
 def check_slots(slots: torch.Tensor, log_cap: int) -> None:

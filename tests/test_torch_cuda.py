@@ -271,3 +271,114 @@ def test_replicated_store_on_cuda_matches_cpu_store(cuda, feed):
     if feed == "log":
         assert replays > 0 and a.feed_stats.log_feed_epochs > 0
     assert sum(r for g in a.per_shard_replica_ops for r in g[1:]) > 0
+
+
+def _multi_case(seed, S=300, d=50, pad=14):
+    """Fields at the default geometry's widths (1 to 512 words; one held as
+    float32), ``d`` distinct dirty rows padded with repeats of the last
+    one, two of them negative."""
+    layout = NodeImageLayout.for_config(HoneycombConfig())
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    widths = [s.words for s in layout.slots.values()]
+    dsts = [torch.randint(-2 ** 31, 2 ** 31 - 1, (S, w), generator=g,
+                          dtype=torch.int32) for w in widths]
+    dsts[3] = dsts[3].view(torch.float32)
+    rows = torch.randperm(S, generator=g)[:d].to(torch.int32)
+    rows[:2] -= S                    # wrap Python-style
+    rows = torch.cat([rows, rows[-1:].expand(pad)])
+    upd = []
+    for t in dsts:
+        u = torch.randint(-2 ** 31, 2 ** 31 - 1, (d, t.shape[1]),
+                          generator=g, dtype=torch.int32).view(t.dtype)
+        upd.append(torch.cat([u, u[-1:].expand(pad, -1)]))
+    return dsts, rows, upd
+
+
+@pytest.mark.parametrize("seed,d", [(0, 1), (1, 50), (2, 300)])
+def test_multi_scatter_kernel_matches_plain(cuda, seed, d):
+    """All 24 fields of the default geometry in one launch, repeated and
+    negative rows included; untouched rows keep their words."""
+    dsts, rows, upd = _multi_case(seed, d=d, pad=14 if d < 300 else 0)
+    want = ref.snapshot_multi_scatter_ref([t.clone() for t in dsts], rows,
+                                          upd)
+    dev = [t.to(cuda) for t in dsts]
+    build.reset_launches()
+    got = delta_scatter.snapshot_multi_scatter(
+        dev, rows.to(cuda), [u.to(cuda) for u in upd])
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["multi_scatter"] == 1
+    assert all(a is b for a, b in zip(got, dev))        # in place
+    for w, g in zip(want, got):
+        assert torch.equal(w.view(torch.int32), g.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["row_high", "row_low", "d_mismatch",
+                                  "dtype_mismatch", "s_mismatch"])
+def test_multi_scatter_kernel_rejects_bad_input(cuda, case):
+    """Like the plain version, the wrapper raises on a row outside
+    [-S, S); it also refuses mismatched D, S or dtypes; nothing is
+    written."""
+    dsts, rows, upd = _multi_case(3, d=6)
+    if case == "row_high":
+        rows[2] = 300
+    elif case == "row_low":
+        rows[2] = -301
+    elif case == "d_mismatch":
+        upd[5] = upd[5][:-1]
+    elif case == "dtype_mismatch":
+        upd[0] = upd[0].view(torch.float32)
+    else:
+        dsts[7] = dsts[7][:-1]
+    dev = [t.to(cuda) for t in dsts]
+    with pytest.raises(IndexError if case.startswith("row")
+                       else ValueError):
+        delta_scatter.snapshot_multi_scatter(
+            dev, rows.to(cuda), [u.to(cuda) for u in upd])
+    for a, b in zip(dev, dsts):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("pipeline", ["serial", "pipelined"])
+def test_legacy_service_on_cuda_matches_cpu(cuda, pipeline):
+    """A 2-shard, 2-replica legacy store through HoneycombService on CUDA
+    answers as on the CPU, with equal meters and followers equal to their
+    primaries field by field; every delta, primary or follower, is one
+    multi-field scatter launch, and nothing launches a fused read, row
+    scatter or log replay."""
+    from repro_torch.core import FIELD_NAMES, HoneycombService, Get, Put
+    cfg = dataclasses.replace(SMALL, layout="legacy")
+
+    def make(device):
+        st = ShardedHoneycombStore(
+            cfg, heap_capacity=256, shards=2,
+            boundaries=uniform_int_boundaries(320, 2),
+            replication=ReplicationConfig(2, "round_robin"), device=device)
+        return st, HoneycombService(st, batch_size=16, pipeline=pipeline)
+    (a, sa), (b, sb) = make(cuda), make("cpu")
+    build.reset_launches()
+    rng = np.random.default_rng(4)
+    for svc in (sa, sb):
+        svc.submit_many(Put(int_key(int(i)), b"v%06d" % i)
+                        for i in np.random.default_rng(0).permutation(300))
+        svc.drain()
+    for rnd in range(6):
+        ops = [Put(int_key(int(i)), b"r%d-%d" % (rnd, i))
+               for i in rng.integers(0, 320, int(rng.choice([3, 30])))]
+        ops += [Get(int_key(int(i))) for i in rng.integers(0, 320, 40)]
+        got = [svc.submit_many(ops) for svc in (sa, sb)]
+        for svc in (sa, sb):
+            svc.drain()
+        assert [t.result() for t in got[0]] == [t.result() for t in got[1]]
+    assert a.sync_stats == b.sync_stats
+    assert dataclasses.asdict(a.feed_stats) == dataclasses.asdict(b.feed_stats)
+    for g in a.shards:
+        p = g.primary._snapshot
+        for f in g.followers:
+            for name in FIELD_NAMES + ("pagetable",):
+                assert torch.equal(getattr(f.snapshot, name),
+                                   getattr(p, name)), name
+    applies = sum(s.delta_syncs for g in a.shards
+                  for s in g.per_replica_sync_stats)
+    assert applies > 0 and build.LAUNCHES["multi_scatter"] == applies
+    assert build.LAUNCHES["fused_get"] == build.LAUNCHES["fused_scan"] \
+        == build.LAUNCHES["row_scatter"] == build.LAUNCHES["log_replay"] == 0

@@ -2,8 +2,8 @@
 ``repro.core`` HoneycombStore fed the same ops give equal GET/SCAN
 answers, serving versions, SyncStats, PipelineStats lane counts and
 CacheStats device meters, under all three sync policies; plus the port's
-refusals (no CUDA, legacy layout, an unknown device) and chip_smoke.py's
-refusal to run without a card."""
+refusals (no CUDA, an unknown layout, an unknown device) and
+chip_smoke.py's refusal to run without a card."""
 from __future__ import annotations
 
 import dataclasses
@@ -103,8 +103,12 @@ def test_store_matches_reference_default_geometry():
 
 
 def test_store_refuses_what_it_cannot_serve(monkeypatch):
-    with pytest.raises(NotImplementedError):
-        TStore(TConfig(layout="legacy"), device="cpu")
+    with pytest.raises(AssertionError):
+        TConfig(layout="columnar")
+    # the legacy per-field layout is served (tests/test_torch_layout.py)
+    legacy = TStore(TConfig(layout="legacy"), device="cpu")
+    legacy.put(b"k", b"v")
+    assert legacy.get_batch([b"k"]) == [b"v"]
     st = TStore(device="cpu")
     st.put(b"k", b"v")
     # an unreplicated store captures no log for the replication feed

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of Honeycomb once on one NVIDIA GPU.
 
-Builds the port's four CUDA kernels from the sources in this checkout
-(one ``nvcc`` per source, all started together), then drives three main
-paths at the paper's node geometry (the default ``HoneycombConfig``: 32 B
-keys, 16 B values, 1273-word node images), each with every kernel's
+Builds the port's eight CUDA kernels from the six sources in this
+checkout (one ``nvcc`` per source, all started together), then drives four
+main paths at the paper's node geometry (the default ``HoneycombConfig``:
+32 B keys, 16 B values, 1273-word node images), each with every kernel's
 launch count set to 0 just before it and read just after:
 
 1. The single-shard ``HoneycombStore`` with 2^17 8-byte keys: GET batches
@@ -14,6 +14,14 @@ launch count set to 0 just before it and read just after:
    checked against a dict model with floor-start SCAN semantics and
    against the store's host tree.  A torch.profiler trace of a few read
    batches gives the device's busy share.
+   Then the KSU and RSU over that path's last snapshot: each of its GET
+   batches walks the levels the read path descends, and at every level
+   the floor search kernels (``key_search_image`` over the shortcut block
+   and the sorted block, ``key_search`` over the decoded sorted block)
+   must equal their plain versions, the read path's shortcut floor and its
+   two-stage segment floor; the leaf-merge kernel orders every leaf row
+   of the image and must equal its plain version and the stable order of
+   the read path's own leaf ranks.
 2. The range-sharded, replicated ``ShardedHoneycombStore``: 2 shards x 3
    replicas (round-robin reads, the log-shipped follower feed, a flat
    relay topology) over 2^18 keys.  Update epochs replay each epoch's
@@ -188,6 +196,33 @@ def device_ms(fns: list, reps: int, match: str, flush: torch.Tensor,
                        f"for {n} launches, in each of {tries} traces")
 
 
+def device_all_ms(fns: list, reps: int, flush: torch.Tensor,
+                  min_traced: float = 0.9, tries: int = 3) -> float:
+    """Mean device time per call of EVERY device activity that ``fns``
+    cause (a library call may launch several kernels), from the
+    profiler's trace, with ``flush`` overwritten before each call; the
+    flush's own fill is told apart by its name and left out.  A trace
+    holding fewer than ``min_traced`` of the fills is taken again; the mean
+    is over the calls whose fill the trace holds."""
+    fill = {name for name, _ in device_events(
+        lambda: [flush.fill_(0) for _ in range(8)])[0]}
+    for fn in fns:
+        fn()
+
+    def run():
+        for r in range(reps):
+            flush.fill_(r)
+            fns[r % len(fns)]()
+    for _ in range(tries):
+        evs = device_events(run)[0]
+        fills = sum(1 for name, _ in evs if name in fill)
+        if fills >= reps * min_traced:
+            return sum(t for name, t in evs if name not in fill) \
+                / fills / 1e3
+    raise SmokeFailure(f"the profiler traced {fills} of {reps} calls, in "
+                       f"each of {tries} traces")
+
+
 def image_clone_ms(image: torch.Tensor) -> float:
     """Time of one clone of a node image, by CUDA events over 32 clones
     back to back.  A clone of a full image moves tens of MB each way, far
@@ -230,7 +265,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
 
-    # ---- build every kernel of the three paths, one nvcc per source ------
+    # ---- build every kernel of the four paths, one nvcc per source -------
     t0 = time.perf_counter()
     reports = build.build(build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.3f} s")
@@ -241,7 +276,13 @@ def main() -> int:
     flush = torch.empty(128 << 20, dtype=torch.int8, device=dev)
 
     print("== single-shard store ==")
-    kernels, launches = single_shard_path(args, dev, flush)
+    kernels, launches, (snap, batches) = single_shard_path(args, dev, flush)
+    print("== KSU/RSU over the live snapshot ==")
+    t0 = time.perf_counter()
+    ksu_rsu, ksu_launches = ksu_rsu_path(args, dev, flush, snap, batches)
+    kernels += ksu_rsu
+    print(f"KSU/RSU path with its timings: {time.perf_counter() - t0:.3f} s")
+    del snap, batches
     print("== 2-shard, 3-replica store ==")
     replay, repl_launches, scatter = replicated_path(args, dev, flush)
     row_scatter = next(k for k in kernels if k["name"] == "row_scatter")
@@ -259,7 +300,8 @@ def main() -> int:
     for k in kernels:         # each kernel's launches over the main paths
         by_path = {"single_shard": launches[k["name"]],
                    "replicated": repl_launches[k["name"]],
-                   "service_legacy": svc_launches[k["name"]]}
+                   "service_legacy": svc_launches[k["name"]],
+                   "ksu_rsu": ksu_launches[k["name"]]}
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
         check(k["launches"] > 0, f"{k['name']} never launched")
@@ -537,7 +579,258 @@ def single_shard_path(args, dev, flush):
         "launches": launches["row_scatter"], "max_abs_err": err, "ms": ms,
         "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": library_ms, "D": D})
-    return kernels, launches
+    return kernels, launches, (snap, [keys for keys, _ in gets2])
+
+
+def ksu_rsu_path(args, dev, flush, snap, batches):
+    """The paper's two hardware units through their own entry points,
+    over the single-shard path's last snapshot (``--keys-log2`` keys after
+    its writes and delta sync).  Each of the path's GET batches walks the
+    levels the read path descends (``core/read_path.py:descend``); at
+    every level the visited image rows are searched by the KSU three ways:
+    ``key_search_image`` over the shortcut block and over the whole sorted
+    block, and ``key_search`` over that sorted block decoded to separate
+    operands.  Then ``leaf_merge`` (the RSU) orders every leaf row of the
+    image.  Every result must equal its plain version, the read path's own
+    shortcut floor, two-stage segment floor and leaf ranks; then each
+    kernel is timed.  Returns the three ``kernels`` entries and the path's
+    launch counts."""
+    from repro_torch.core import HoneycombConfig, NodeImageLayout
+    from repro_torch.core import read_path as rp
+    from repro_torch.core.heap import LEAF
+    from repro_torch.core.keys import pack_keys
+    from repro_torch.kernels import build, key_search, leaf_merge, ops, ref
+
+    cfg = HoneycombConfig()
+    N, L, KW, NSC = cfg.node_cap, cfg.log_cap, cfg.key_words, cfg.n_shortcuts
+    offs = NodeImageLayout.for_config(cfg).offsets()
+    view = rp.snapshot_fields(snap, cfg)
+    image = snap.image
+
+    def block(keys, lens, count, n):
+        return dict(keys_off=offs[keys][0], lens_off=offs[lens][0],
+                    count_off=offs[count][0], n_keys=n, key_words=KW)
+    shortcut = block("sc_keys", "sc_keylen", "n_shortcuts", NSC)
+    sorted_block = block("skeys", "skeylen", "nitems", N)
+
+    def field(rows, name):
+        o, w = offs[name]
+        return rows[:, o:o + w].contiguous()
+
+    def decoded(rows):
+        """The sorted block of each row as key_search's operands."""
+        B = rows.shape[0]
+        valid = (torch.arange(N, dtype=torch.int32, device=dev)[None, :]
+                 < rows[:, offs["nitems"][0]][:, None]).to(torch.int32)
+        return (field(rows, "skeys").view(B, N, KW), field(rows, "skeylen"),
+                valid)
+
+    err = collections.Counter()       # max abs err of each kernel vs plain
+    stats = collections.Counter()
+
+    def same(name, want, got, what):
+        e = max_abs_err([want], [got])
+        check(e == 0 and want.dtype == got.dtype,
+              f"{name}: {what} (max abs err {e})")
+        err[name] = max(err[name], e)
+
+    kept = []                         # leaf-level inputs, for the timings
+    # ---- the main path, every launch count set to 0 just before it -------
+    build.reset_launches()
+    t0 = time.perf_counter()
+    for keys in batches:
+        lanes, lens = pack_keys(keys, KW)
+        key = torch.from_numpy(lanes.view(np.int32)).to(dev)
+        klen = torch.from_numpy(lens).to(dev)
+        B = len(keys)
+        lid = torch.full((B,), snap.root_lid, dtype=torch.int32, device=dev)
+        phys = torch.zeros_like(lid)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        for level in range(cfg.max_height):
+            cur = rp._resolve_version(view, view.pagetable[lid],
+                                      snap.read_version, cfg)
+            cur = torch.where(done, phys, cur)
+            rows = image[cur]
+            sc = ops.key_search_image(key, klen, rows, **shortcut)
+            sb = ops.key_search_image(key, klen, rows, **sorted_block)
+            blk = decoded(rows)
+            bs = ops.key_search(key, klen, *blk)
+            # (a) each kernel against its plain version on its inputs
+            same("key_search_image", ref.key_search_image_ref(
+                key, klen, rows, **shortcut), sc, "shortcut block vs plain")
+            same("key_search_image", ref.key_search_image_ref(
+                key, klen, rows, **sorted_block), sb,
+                "sorted block vs plain")
+            same("key_search", ref.key_search_ref(key, klen, *blk), bs,
+                 "vs plain")
+            # (b) the shortcut floor, (c) the two-stage segment floor, (d)
+            # the block mode against the image mode, at this level
+            seg = rp._shortcut_floor(view, cur, key, klen)
+            check(torch.equal(sc.clamp(min=0), seg),
+                  f"level {level}: shortcut search differs from the read "
+                  f"path's _shortcut_floor")
+            check(torch.equal(sb, rp._segment_floor(view, cur, seg, key,
+                                                    klen, cfg)),
+                  f"level {level}: sorted-block search differs from the "
+                  f"read path's two-stage floor")
+            check(torch.equal(bs, sb), f"level {level}: key_search differs "
+                  f"from key_search_image on the decoded block")
+            stats["visits"] += B
+            stats["levels"] += 1
+            stats["sorted_minus1"] += int((sb < 0).sum())
+            stats["sorted_nonzero"] += int((sb != 0).sum())
+            is_leaf = view.ntype[cur] == LEAF
+            child = rp._child(view, cur, key, klen, cfg)
+            done_next = done | is_leaf
+            lid = torch.where(done_next, lid, child)
+            phys, done = cur, done_next
+            if bool(done.all()):
+                break
+        check(bool(done.all()), "a request found no leaf")
+        if len(kept) < ROTATE:
+            kept.append((key, klen, rows, blk))
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    leaf_rows = (view.ntype == LEAF).nonzero()[:, 0].to(torch.int32)
+    leaves = image[leaf_rows]
+    merge_in = (field(leaves, "nitems")[:, 0].contiguous(),
+                field(leaves, "nlog")[:, 0].contiguous(),
+                field(leaves, "log_backptr"), field(leaves, "log_hint"))
+    perm, valid = ops.leaf_merge(*merge_in, node_cap=N, log_cap=L)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+
+    # ---- counts and the merge's checks ------------------------------------
+    check(launches["key_search_image"] == 2 * stats["levels"]
+          and launches["key_search"] == stats["levels"]
+          and launches["leaf_merge"] == 1,
+          f"launches {launches} for {stats['levels']} batch levels")
+    check(all(v == 0 for k, v in launches.items() if k not in
+              ("key_search", "key_search_image", "leaf_merge")),
+          f"the KSU/RSU path launched another kernel: {launches}")
+    wp, wv = ref.leaf_merge_ref(*merge_in, node_cap=N, log_cap=L)
+    same("leaf_merge", wp, perm, "perm vs plain")
+    same("leaf_merge", wv, valid, "valid vs plain")
+    # (e) the read path's own leaf ranks, stably sorted, in all T positions
+    rank, used = rp.leaf_ranks(view.nitems[leaf_rows], view.nlog[leaf_rows],
+                               view.log_backptr[leaf_rows],
+                               view.log_hint[leaf_rows], N, L)
+    check(torch.equal(perm, torch.argsort(rank, dim=1, stable=True)
+                      .to(torch.int32)) and torch.equal(
+                          valid, used.to(torch.int32)),
+          "leaf_merge differs from the read path's leaf ranks")
+    # (f) the inputs are not trivial
+    n_leaves = leaf_rows.numel()
+    with_log = int((merge_in[1] > 0).sum())
+    check(with_log > 0 and stats["sorted_nonzero"] > 0,
+          f"trivial inputs: {with_log} leaves with log entries, "
+          f"{stats['sorted_nonzero']} non-zero sorted-block floors")
+    print(f"checked {stats['visits']} node visits ({len(batches)} GET "
+          f"batches of {BATCH}, {stats['levels']} batch levels): shortcut "
+          f"search == _shortcut_floor, sorted-block search == the two-stage "
+          f"floor ({stats['sorted_minus1']} below every key, "
+          f"{stats['sorted_nonzero']} non-zero), key_search == "
+          f"key_search_image, each == its plain version; {search_s:.3f} s "
+          f"host clock with the checks")
+    print(f"checked leaf_merge over {n_leaves} leaf rows ({with_log} with "
+          f"log entries, {int(merge_in[1].sum())} entries in all): perm and "
+          f"valid == plain and == the read path's leaf ranks stably sorted, "
+          f"in all {N + L} positions; {merge_s * 1e3:.3f} ms host clock")
+    print(f"  launches {launches}")
+
+    # ---- timings at the path's shapes (these launches are not counted) ---
+    def image_bytes(mode):
+        """Bytes an image-mode search of the timed batches must move, per
+        call: each request's query, length, count word and answer, and the
+        lanes and length of each of its live candidates."""
+        live = sum(int(c[2][:, mode["count_off"]].clamp(0, mode["n_keys"])
+                       .sum()) for c in kept)
+        return BATCH * (KW + 3) * 4 + live * (KW + 1) * 4 / len(kept)
+
+    def block_bytes():
+        """The same for block mode: the whole valid mask, then the lanes
+        and length of each valid candidate."""
+        live = sum(int(c[3][2].sum()) for c in kept)
+        return BATCH * (KW + 2 + N) * 4 + live * (KW + 1) * 4 / len(kept)
+
+    out = []
+    for name, mode, match, line in (
+            ("key_search_image", sorted_block, "key_search_image_kernel",
+             "src/repro/kernels/key_search.py:88"),
+            ("key_search", None, "key_search_kernel",
+             "src/repro/kernels/key_search.py:131")):
+        if mode is None:
+            calls = [lambda c=c: key_search.key_search(c[0], c[1], *c[3])
+                     for c in kept]
+            plain = [lambda c=c: ref.key_search_ref(c[0], c[1], *c[3])
+                     for c in kept]
+            io = block_bytes()
+        else:
+            calls = [lambda c=c: key_search.key_search_image(
+                c[0], c[1], c[2], **mode) for c in kept]
+            plain = [lambda c=c: ref.key_search_image_ref(
+                c[0], c[1], c[2], **mode) for c in kept]
+            io = image_bytes(mode)
+        ms = device_ms(calls, 64, match, flush)
+        wrapper_ms = cuda_ms(calls, 200)
+        plain_ms = cuda_ms(plain, 32)
+        bound_ms = io / HBM_BYTES_PER_S * 1e3
+        entry = {"name": name, "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/key_search.cu",
+                 "replaces": line, "launches": launches[name],
+                 "max_abs_err": err[name], "ms": ms,
+                 "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": "bytes",
+                 "library_ms": None, "B": BATCH}
+        what = "sorted block decoded to operands" if mode is None \
+            else "sorted block in the image rows"
+        if mode is not None:      # the same kernel on the shortcut block
+            sc_calls = [lambda c=c: key_search.key_search_image(
+                c[0], c[1], c[2], **shortcut) for c in kept]
+            entry["ms_shortcut"] = device_ms(sc_calls, 64, match, flush)
+            entry["bound_ms_shortcut"] = image_bytes(shortcut) \
+                / HBM_BYTES_PER_S * 1e3
+            what += (f"; shortcut block {entry['ms_shortcut']:.4f} ms, bound "
+                     f"{entry['bound_ms_shortcut']:.6f} ms")
+        print(f"{name}: equals its plain version exactly (tolerance 0); "
+              f"kernel {ms:.4f} ms device time per batch of {BATCH} "
+              f"(L2 flushed), {wrapper_ms:.4f} ms per call through the "
+              f"wrapper back to back (plain {plain_ms:.4f} ms), bound "
+              f"{bound_ms:.6f} ms ({io:.0f} B), {what}; no single PyTorch "
+              f"call computes this floor")
+        out.append(entry)
+
+    calls = [lambda: leaf_merge.leaf_merge(*merge_in, node_cap=N,
+                                           log_cap=L)]
+    ms = device_ms(calls, 64, "leaf_merge_kernel", flush)
+    wrapper_ms = cuda_ms(calls, 200)
+    plain_ms = cuda_ms([lambda: ref.leaf_merge_ref(
+        *merge_in, node_cap=N, log_cap=L)], 16)
+    argsort_ms = device_all_ms(
+        [lambda: torch.argsort(rank, dim=1, stable=True)], 64, flush)
+    # nitems, nlog and both outputs of every leaf, and the back pointer and
+    # hint of each live log entry
+    io = n_leaves * 4 * (2 + 2 * (N + L)) \
+        + 8 * int(merge_in[1].clamp(0, L).sum())
+    bound_ms = io / HBM_BYTES_PER_S * 1e3
+    print(f"leaf_merge: equals its plain version exactly (tolerance 0); "
+          f"kernel {ms:.4f} ms device time for {n_leaves} leaves (L2 "
+          f"flushed), {wrapper_ms:.4f} ms per call through the wrapper back "
+          f"to back (plain {plain_ms:.4f} ms), bound {bound_ms:.6f} ms ({io} "
+          f"B); partial yardstick torch.argsort(stable=True) of the "
+          f"precomputed ranks (no shift-register sort, no ranks) "
+          f"{argsort_ms:.4f} ms device time")
+    out.append({"name": "leaf_merge", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/leaf_merge.cu",
+                "replaces": "src/repro/kernels/leaf_merge.py:85",
+                "launches": launches["leaf_merge"],
+                "max_abs_err": err["leaf_merge"], "ms": ms,
+                "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "library_ms": None, "argsort_ms": argsort_ms,
+                "leaves": n_leaves})
+    return out, launches
 
 
 def replay_case(S: int, d: int, offs, layout, gen) -> tuple:

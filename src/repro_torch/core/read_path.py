@@ -433,6 +433,33 @@ def _take(a: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 1, idx)
 
 
+def leaf_ranks(nitems: torch.Tensor, nlog: torch.Tensor,
+               backptr: torch.Tensor, hints: torch.Tensor, node_cap: int,
+               log_cap: int):
+    """The RSU's merge keys of a batch of leaves: (rank [B, T] int32, used
+    [B, T] bool) over the sorted block then the log block, T = node_cap +
+    log_cap, from each leaf's nitems, nlog [B] and log back pointers and
+    order hints [B, log_cap].  The stable order of ``rank`` is the leaf's
+    ascending key order; unused slots rank INT32_MAX."""
+    N, L = node_cap, log_cap
+    B = nitems.shape[0]
+
+    # --- RSU log sort via order hints -------------------------------------
+    logpos = log_sort_positions(hints, nlog, L)                # [B, L]
+
+    # merged rank: log entries go right before the sorted item their back
+    # pointer names; hint order breaks ties among them (Section 4.3)
+    rank_log = backptr * (L + 1) + logpos                      # [B, L]
+    rank_sorted = (_arange(N, nitems) * (L + 1) + L)[None, :].expand(B, N)
+
+    svis = _arange(N, nitems)[None, :] < nitems[:, None]
+    lvis_slot = _arange(L, nitems)[None, :] < nlog[:, None]
+    used = torch.cat([svis, lvis_slot], dim=1)
+    rank = torch.where(used, torch.cat([rank_sorted, rank_log], dim=1),
+                       INT32_MAX)
+    return rank, used
+
+
 def _resolve_leaf(snap: SnapshotFields, phys: torch.Tensor,
                   cfg: HoneycombConfig):
     """Merged, shadow-resolved enumeration of one leaf per request.
@@ -445,19 +472,9 @@ def _resolve_leaf(snap: SnapshotFields, phys: torch.Tensor,
     B = phys.shape[0]
     rv = snap.read_version
     nv = snap.version[phys]                    # [B]
-    nit = snap.nitems[phys]
-    nlg = snap.nlog[phys]
-
-    # --- RSU log sort via order hints -------------------------------------
-    logpos = log_sort_positions(snap.log_hint[phys], nlg, L)   # [B, L]
-
-    # merged rank: log entries go right before the sorted item their back
-    # pointer names; hint order breaks ties among them (Section 4.3)
-    rank_log = snap.log_backptr[phys] * (L + 1) + logpos       # [B, L]
-    rank_sorted = (_arange(N, phys) * (L + 1) + L)[None, :].expand(B, N)
-
-    svis = _arange(N, phys)[None, :] < nit[:, None]
-    lvis_slot = _arange(L, phys)[None, :] < nlg[:, None]
+    rank, used = leaf_ranks(snap.nitems[phys], snap.nlog[phys],
+                            snap.log_backptr[phys], snap.log_hint[phys], N, L)
+    svis, lvis_slot = used[:, :N], used[:, N:]
     lver = nv[:, None] + snap.log_vdelta[phys]
     lvis = lvis_slot & (lver <= rv)
 
@@ -469,9 +486,6 @@ def _resolve_leaf(snap: SnapshotFields, phys: torch.Tensor,
     isdel = torch.cat([torch.zeros_like(svis),
                        snap.log_op[phys] == LOG_DELETE], dim=1)
     vis = torch.cat([svis, lvis], dim=1)
-    used = torch.cat([svis, lvis_slot], dim=1)
-    rank = torch.where(used, torch.cat([rank_sorted, rank_log], dim=1),
-                       INT32_MAX)
 
     # order by rank (stable; ranks of used slots are unique)
     order = torch.argsort(rank, dim=1, stable=True)

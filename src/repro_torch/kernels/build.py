@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C launcher.  ``load(name)``
 compiles it with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/repro_torch/`` at the repository root (named by a hash of the
-source, so an edited source rebuilds) and loads it; ``build(names)``
-starts one ``nvcc`` per missing library, all at once, and waits for them.
-Nothing is built when this module is imported.
+source, so an edited source rebuilds) and loads it; ``launcher(name, fn,
+argtypes)`` binds one of its C launchers, once, for every wrapper;
+``build(names)`` starts one ``nvcc`` per missing library, all at once, and
+waits for them.  Nothing is built when this module is imported.
 
 ``LAUNCHES`` holds one plain integer per kernel; each wrapper adds one
 where it launches its kernel, and nowhere else.
@@ -27,12 +28,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"fused_get": 0, "fused_scan": 0, "row_scatter": 0,
-            "log_replay": 0, "multi_scatter": 0}
+            "log_replay": 0, "multi_scatter": 0, "key_search": 0,
+            "key_search_image": 0, "leaf_merge": 0}
 
 #: every CUDA source of the port, by name (``csrc/<name>.cu``)
-SOURCES = ("fused_read", "row_scatter", "log_replay", "multi_scatter")
+SOURCES = ("fused_read", "row_scatter", "log_replay", "multi_scatter",
+           "key_search", "leaf_merge")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LAUNCHERS: dict[str, object] = {}
 
 
 def reset_launches() -> None:
@@ -93,15 +97,28 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def launcher(name: str, fn: str, argtypes: list):
+    """The C launcher ``fn`` of ``csrc/<name>.cu``, its argument types set
+    (``ctypes.c_void_p`` for pointers and the stream, ``ctypes.c_int`` for
+    ints); it returns a CUDA error code."""
+    f = _LAUNCHERS.get(fn)
+    if f is None:
+        f = getattr(load(name), fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _LAUNCHERS[fn] = f
+    return f
+
+
 def check(err: int, what: str) -> None:
     """Raise when a launcher returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
-def check_tensor(t, name: str, ndim: int, device=None) -> None:
+def check_tensor(t, name: str, ndim: int, device=None, dtype=None) -> None:
     """A kernel argument must be a contiguous 32-bit CUDA tensor of the
-    given rank (on ``device`` when one is named)."""
+    given rank (on ``device`` and of ``dtype`` when they are named)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
     if t.device.type != "cuda" or (device is not None and t.device != device):
@@ -109,6 +126,8 @@ def check_tensor(t, name: str, ndim: int, device=None) -> None:
                          f"got {t.device}")
     if t.dtype not in (torch.int32, torch.uint32, torch.float32):
         raise ValueError(f"{name} must hold 4-byte elements, got {t.dtype}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {t.dim()}")
     if not t.is_contiguous():

@@ -27,7 +27,6 @@ import torch
 
 from . import build, ref
 
-_LIBS: dict[str, ctypes.CDLL] = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "row_scatter": [_P, _I, _I, _P, _P, _I, _P],
@@ -38,15 +37,8 @@ _ARGTYPES = {
 }
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = build.load(name)
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = _I
-        _LIBS[name] = lib
-    return lib
+def _launcher(name: str):
+    return build.launcher(name, f"{name}_launch", _ARGTYPES[name])
 
 
 def snapshot_delta_scatter(dst: torch.Tensor, rows: torch.Tensor,
@@ -69,11 +61,11 @@ def snapshot_delta_scatter(dst: torch.Tensor, rows: torch.Tensor,
     if D == 0:
         return dst
     ref.check_rows(rows, S)        # as the plain version, before writing
-    lib = _lib("row_scatter")
+    launch = _launcher("row_scatter")
     with torch.cuda.device(dst.device):   # the launcher uses the current device
         stream = torch.cuda.current_stream(dst.device).cuda_stream
-        err = lib.row_scatter_launch(dst.data_ptr(), S, W, rows.data_ptr(),
-                                     upd.data_ptr(), D, stream)
+        err = launch(dst.data_ptr(), S, W, rows.data_ptr(), upd.data_ptr(),
+                     D, stream)
     build.check(err, "row_scatter")
     build.LAUNCHES["row_scatter"] += 1
     return dst
@@ -121,11 +113,11 @@ def snapshot_multi_scatter(dsts, rows: torch.Tensor, upd) -> tuple:
     if D == 0:
         return dsts
     ref.check_rows(rows, S)        # as the plain version, before writing
-    lib = _lib("multi_scatter")
+    launch = _launcher("multi_scatter")
     ptrs = ctypes.c_void_p * nf
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.multi_scatter_launch(
+        err = launch(
             ptrs(*(d.data_ptr() for d in dsts)),
             ptrs(*(u.data_ptr() for u in upd)),
             (ctypes.c_int * nf)(*(d.shape[1] for d in dsts)), nf, S,
@@ -168,10 +160,10 @@ def log_replay_scatter(image: torch.Tensor, rows: torch.Tensor,
         return image
     ref.check_rows(rows, S)        # as the plain version, before writing
     ref.check_slots(slots, offs.log_cap)
-    lib = _lib("log_replay")
+    launch = _launcher("log_replay")
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = lib.log_replay_launch(
+        err = launch(
             image.data_ptr(), S, IW, rows.data_ptr(), slots.data_ptr(),
             entries.data_ptr(), D, EW, *offs, stream)
     build.check(err, "log_replay")

@@ -21,20 +21,9 @@ from ..core.read_path import GetResult, ScanResult, TreeSnapshot
 from ..core.schema import FIELD_NAMES, NodeImageLayout
 from . import build
 
-_LIB: ctypes.CDLL | None = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = build.load("fused_read")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_read_launch.argtypes = (
-            [i, p, i, p, i, p, i, p, p, i, p, p, p, p, i, i, i, i]
-            + [p] * 10)
-        lib.fused_read_launch.restype = i
-        _LIB = lib
-    return _LIB
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = ([_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+              _I, _I] + [_P] * 10)
 
 
 def _geometry(cfg) -> np.ndarray:
@@ -95,9 +84,9 @@ def _launch(get: bool, snap: TreeSnapshot, lo, lolen, hi, hilen, cfg,
     meters = torch.empty(B, 3, **i32)
     ptrs = [t.data_ptr() for t in outs] + [None] * (6 - len(outs))
     geo = _geometry(cfg)
-    lib = _lib()
+    launch = build.launcher("fused_read", "fused_read_launch", _ARGTYPES)
     with torch.cuda.device(dev):   # the launcher uses the current device
-        err = lib.fused_read_launch(
+        err = launch(
             int(get), geo.ctypes.data, len(geo), image.data_ptr(), S,
             snap.pagetable.data_ptr(), snap.pagetable.shape[0],
             snap.cache_lids.data_ptr(), snap.cache_image.data_ptr(), C,

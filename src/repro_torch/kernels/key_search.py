@@ -1,0 +1,106 @@
+"""KSU floor search on the GPU (port of ``repro.kernels.key_search``:
+``key_search`` and ``key_search_image``).
+
+The key search unit (paper Section 4.2) finds, per request, the largest
+candidate key <= the query within one block of a node: the shortcut
+block or the sorted block.  ``key_search`` takes the candidates as
+separate operands; ``key_search_image`` reads them out of each request's
+packed node-image row at the layout's static word offsets
+(``core/schema.NodeImageLayout.offsets``).  Both launch
+``csrc/key_search.cu``, one warp per request.  Keys are int32 bit views of
+big-endian u32 lanes; the kernel compares them as unsigned words.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # q, qlen, keys, klens, valid, out, B, N, KW, stream
+    "key_search_launch": [_P] * 6 + [_I] * 3 + [_P],
+    # q, qlen, img, out, B, IW, keys_off, lens_off, count_off, n_keys, KW,
+    # stream
+    "key_search_image_launch": [_P] * 4 + [_I] * 7 + [_P],
+}
+
+
+def key_search(q: torch.Tensor, qlen: torch.Tensor, keys: torch.Tensor,
+               klens: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Floor search on CUDA: the largest ``i`` with ``valid[b, i]`` and
+    ``keys[b, i] <= q[b]``, else -1.
+
+    q:     [B, KW] int32 query lanes (u32 bit views)
+    qlen:  [B] int32 byte lengths
+    keys:  [B, N, KW] int32 candidate lanes
+    klens, valid: [B, N] int32
+    Returns [B] int32."""
+    build.check_tensor(keys, "keys", 3, dtype=torch.int32)
+    for t, name, nd in ((q, "q", 2), (qlen, "qlen", 1), (klens, "klens", 2),
+                        (valid, "valid", 2)):
+        build.check_tensor(t, name, nd, keys.device, torch.int32)
+    B, N, KW = keys.shape
+    if (q.shape != (B, KW) or qlen.shape != (B,) or klens.shape != (B, N)
+            or valid.shape != (B, N)):
+        raise ValueError(f"need q [{B}, {KW}], qlen [{B}], klens and valid "
+                         f"[{B}, {N}] for keys {tuple(keys.shape)}")
+    if N < 1 or KW < 1:
+        raise ValueError(f"need at least one candidate of one lane, got "
+                         f"keys {tuple(keys.shape)}")
+    out = torch.empty(B, dtype=torch.int32, device=keys.device)
+    if B == 0:
+        return out
+    with torch.cuda.device(keys.device):   # the launcher uses it
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = build.launcher("key_search", "key_search_launch",
+                             _ARGTYPES["key_search_launch"])(
+            q.data_ptr(), qlen.data_ptr(), keys.data_ptr(), klens.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), B, N, KW, stream)
+    build.check(err, "key_search")
+    build.LAUNCHES["key_search"] += 1
+    return out
+
+
+def key_search_image(q: torch.Tensor, qlen: torch.Tensor,
+                     node_img: torch.Tensor, *, keys_off: int, lens_off: int,
+                     count_off: int, n_keys: int,
+                     key_words: int) -> torch.Tensor:
+    """Floor search on CUDA over a candidate block inside packed node
+    images: request ``b`` searches the ``n_keys`` keys of ``key_words``
+    lanes at word ``keys_off`` of ``node_img[b]``, their lengths at
+    ``lens_off`` and the live count (signed) at ``count_off``.
+
+    q:        [B, key_words] int32 query lanes (u32 bit views)
+    qlen:     [B] int32 byte lengths
+    node_img: [B, IW] int32 image rows, one per request
+    Returns [B] int32 floor indices, -1 where no live key <= the query."""
+    build.check_tensor(node_img, "node_img", 2, dtype=torch.int32)
+    build.check_tensor(q, "q", 2, node_img.device, torch.int32)
+    build.check_tensor(qlen, "qlen", 1, node_img.device, torch.int32)
+    B, IW = node_img.shape
+    if q.shape != (B, key_words) or qlen.shape != (B,):
+        raise ValueError(f"need q [{B}, {key_words}] and qlen [{B}], got "
+                         f"{tuple(q.shape)} and {tuple(qlen.shape)}")
+    if (n_keys < 1 or key_words < 1 or min(keys_off, lens_off, count_off) < 0
+            or keys_off + n_keys * key_words > IW
+            or lens_off + n_keys > IW or count_off >= IW):
+        raise ValueError(f"a block of {n_keys} keys x {key_words} words at "
+                         f"keys_off={keys_off}, lens_off={lens_off}, "
+                         f"count_off={count_off} does not fit rows of {IW} "
+                         f"words")
+    out = torch.empty(B, dtype=torch.int32, device=node_img.device)
+    if B == 0:
+        return out
+    with torch.cuda.device(node_img.device):
+        stream = torch.cuda.current_stream(node_img.device).cuda_stream
+        err = build.launcher("key_search", "key_search_image_launch",
+                             _ARGTYPES["key_search_image_launch"])(
+            q.data_ptr(), qlen.data_ptr(), node_img.data_ptr(),
+            out.data_ptr(), B, IW, keys_off, lens_off, count_off, n_keys,
+            key_words, stream)
+    build.check(err, "key_search_image")
+    build.LAUNCHES["key_search_image"] += 1
+    return out

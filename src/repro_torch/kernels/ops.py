@@ -2,8 +2,10 @@
 
 The tensor's device selects the implementation: a CPU tensor runs the
 plain PyTorch version (``kernels/ref.py``), a CUDA tensor launches the
-hand-written kernel (``delta_scatter.py``: row scatter, multi-field
-scatter and log replay; ``fused_read.py``), and any other device raises.  A CUDA call never falls
+hand-written kernel (``key_search.py``: the KSU floor search, plain and
+over packed node images; ``leaf_merge.py``: the RSU merge;
+``delta_scatter.py``: row scatter, multi-field scatter and log replay;
+``fused_read.py``), and any other device raises.  A CUDA call never falls
 back to the plain version.
 
 ``READ_DISPATCHES`` meters dispatched launches per read batch, recorded
@@ -21,6 +23,8 @@ import torch
 
 from . import delta_scatter as _ds
 from . import fused_read as _fr
+from . import key_search as _ks
+from . import leaf_merge as _lm
 from . import ref as _ref
 
 READ_DISPATCHES: collections.Counter = collections.Counter()
@@ -91,6 +95,38 @@ def collect() -> list:
                 out.append(("read_dispatches", "counter", d, labels))
                 out.append(("read_batches", "counter", b, labels))
     return out
+
+
+def key_search(q, qlen, keys, klens, valid):
+    """KSU floor search: [B] int32, the largest ``i`` with ``valid[b, i]``
+    and ``keys[b, i] <= q[b]``, else -1 (q [B, KW], keys [B, N, KW]: int32
+    bit views of u32 lanes; qlen [B], klens and valid [B, N] int32)."""
+    if _on_cuda(keys):
+        return _ks.key_search(q, qlen, keys, klens, valid)
+    return _ref.key_search_ref(q, qlen, keys, klens, valid)
+
+
+def key_search_image(q, qlen, node_img, *, keys_off, lens_off, count_off,
+                     n_keys, key_words):
+    """Floor search addressed INSIDE packed node images: the candidate
+    block of request ``b`` is read from ``node_img[b]`` at the static
+    layout offsets (core/schema.py) instead of arriving as separate
+    key/length/valid operands."""
+    kw = dict(keys_off=keys_off, lens_off=lens_off, count_off=count_off,
+              n_keys=n_keys, key_words=key_words)
+    if _on_cuda(node_img):
+        return _ks.key_search_image(q, qlen, node_img, **kw)
+    return _ref.key_search_image_ref(q, qlen, node_img, **kw)
+
+
+def leaf_merge(nitems, nlog, backptr, hints, *, node_cap, log_cap):
+    """RSU merged-emission permutation of a batch of leaves: (perm,
+    valid), each [B, node_cap + log_cap] int32."""
+    if _on_cuda(nitems):
+        return _lm.leaf_merge(nitems, nlog, backptr, hints,
+                              node_cap=node_cap, log_cap=log_cap)
+    return _ref.leaf_merge_ref(nitems, nlog, backptr, hints,
+                               node_cap=node_cap, log_cap=log_cap)
 
 
 def snapshot_delta_scatter(dst, rows, upd):

@@ -1,16 +1,73 @@
 """Plain PyTorch versions of the hand-written kernels (port of the
-oracles in ``repro.kernels.ref``: the fused reads, the delta-sync row
-scatter, the legacy layout's multi-field scatter and the log-replay
+oracles in ``repro.kernels.ref``: the KSU floor search, plain and over
+packed node images, the RSU leaf merge, the fused reads, the delta-sync
+row scatter, the legacy layout's multi-field scatter and the log-replay
 scatter).
 
-The kernel wrappers (``delta_scatter.py``, ``fused_read.py``) are held to
-these bit for bit, and ``ops.py`` runs them for tensors on the CPU.
+The kernel wrappers (``key_search.py``, ``leaf_merge.py``,
+``delta_scatter.py``, ``fused_read.py``) are held to these bit for bit,
+and ``ops.py`` runs them for tensors on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import read_path as _rp
+from ..core.keys import torch_key_cmp
+
+
+def key_search_ref(q: torch.Tensor, qlen: torch.Tensor, keys: torch.Tensor,
+                   klens: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """KSU floor search: the largest index ``i`` with ``valid[b, i]`` and
+    ``keys[b, i] <= q[b]``, else -1.  Lanes compare as unsigned words at
+    the first lane that differs; where every lane is equal the candidate is
+    <= the query when ``klens <= qlen`` (signed int32, as the Pallas
+    kernel compares them).
+
+    q [B, KW], keys [B, N, KW]: int32 bit views of u32 lanes; qlen [B],
+    klens and valid [B, N]: int32.  Returns [B] int32."""
+    zero = torch.zeros((), dtype=torch.int32, device=keys.device)
+    lanes = torch_key_cmp(keys, zero, q[:, None, :], zero)    # lanes only
+    leq = (lanes < 0) | ((lanes == 0) & (klens <= qlen[:, None]))
+    ar = torch.arange(keys.shape[1], dtype=torch.int32, device=keys.device)
+    return torch.where(leq & (valid != 0), ar, -1).amax(dim=1) \
+        .to(torch.int32)
+
+
+def key_search_image_ref(q: torch.Tensor, qlen: torch.Tensor,
+                         img: torch.Tensor, *, keys_off: int, lens_off: int,
+                         count_off: int, n_keys: int,
+                         key_words: int) -> torch.Tensor:
+    """Floor search over packed node images: each request's candidate
+    block (``n_keys`` keys of ``key_words`` lanes, their lengths and the
+    live count, all int32 words, the count signed) is decoded from its
+    [IW] image row at the static word offsets, then ``key_search_ref``."""
+    B = img.shape[0]
+    keys = img[:, keys_off:keys_off + n_keys * key_words] \
+        .reshape(B, n_keys, key_words)
+    klens = img[:, lens_off:lens_off + n_keys]
+    count = img[:, count_off]
+    ar = torch.arange(n_keys, dtype=torch.int32, device=img.device)
+    valid = (ar[None, :] < count[:, None]).to(torch.int32)
+    return key_search_ref(q, qlen, keys, klens, valid)
+
+
+def leaf_merge_ref(nitems: torch.Tensor, nlog: torch.Tensor,
+                   backptr: torch.Tensor, hints: torch.Tensor, *,
+                   node_cap: int, log_cap: int):
+    """RSU merged-emission order of a batch of leaves, without key
+    compares: the stable order of the read path's merge ranks
+    (``core/read_path.leaf_ranks``: the log block's order-hint
+    shift-register sort, then back-pointer ranks).
+
+    nitems, nlog [B]; backptr, hints [B, L]: int32.  Returns (perm, valid)
+    [B, N + L] int32: ``perm[b, p]`` is the slot (sorted block, then log
+    block) emitted at position p, in all N + L positions (unused slots
+    follow in slot order); ``valid`` marks the used slots."""
+    rank, used = _rp.leaf_ranks(nitems, nlog, backptr, hints, node_cap,
+                                log_cap)
+    perm = torch.argsort(rank, dim=1, stable=True).to(torch.int32)
+    return perm, used.to(torch.int32)
 
 
 def check_rows(rows: torch.Tensor, n: int) -> None:

@@ -16,9 +16,11 @@ import torch
 from repro_torch.core import (FeedTopology, HoneycombConfig, HoneycombStore,
                               NodeImageLayout, ReplicationConfig,
                               ShardedHoneycombStore, uniform_int_boundaries)
+from repro_torch.core.heap import LEAF
 from repro_torch.core.keys import int_key, pack_keys
 from repro_torch.core.read_path import attach_cache_image
-from repro_torch.kernels import build, delta_scatter, fused_read, ref
+from repro_torch.kernels import (build, delta_scatter, fused_read,
+                                 key_search, leaf_merge, ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -382,3 +384,206 @@ def test_legacy_service_on_cuda_matches_cpu(cuda, pipeline):
     assert applies > 0 and build.LAUNCHES["multi_scatter"] == applies
     assert build.LAUNCHES["fused_get"] == build.LAUNCHES["fused_scan"] \
         == build.LAUNCHES["row_scatter"] == build.LAUNCHES["log_replay"] == 0
+
+
+def _i32(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+
+def _search_case(B, N, KW, seed, lane_hi=60):
+    """The reference sweep's floor-search inputs (tests/test_kernels.py);
+    with ``lane_hi = 2**32`` lanes span the whole u32 range, and half the
+    candidates copy their query's lanes up to a random lane so that the
+    first difference falls anywhere, high bits included."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, lane_hi, (B, N, KW), dtype=np.uint64) \
+        .astype(np.uint32)
+    klens = rng.integers(0, KW * 4 + 1, (B, N)).astype(np.int32)
+    valid = (rng.random((B, N)) < 0.8).astype(np.int32)
+    q = rng.integers(0, lane_hi, (B, KW), dtype=np.uint64).astype(np.uint32)
+    qlen = rng.integers(1, KW * 4 + 1, (B,)).astype(np.int32)
+    if lane_hi > 2 ** 31:
+        cut = rng.integers(0, KW + 1, (B, N))
+        share = (np.arange(KW)[None, None, :] < cut[:, :, None]) \
+            & (rng.random((B, N, 1)) < 0.5)
+        keys = np.where(share, q[:, None, :], keys)
+    return q, qlen, keys, klens, valid
+
+
+def _image_case(cfg, B, seed, count_top_bit=False):
+    """Random image rows with planted sorted candidate blocks, as
+    tests/test_layout.py:test_key_search_image_kernel_matches_ref plants
+    them; with ``count_top_bit`` half the rows' live counts have their top
+    bit set (a negative int32).  Returns (q, qlen, img, the block's
+    ``key_search_image`` keywords)."""
+    layout = NodeImageLayout.for_config(cfg)
+    offs = layout.offsets()
+    rng = np.random.default_rng(seed)
+    kw = cfg.key_words
+    img = rng.integers(0, 2 ** 32, (B, layout.image_words), np.int64) \
+        .astype(np.uint32)
+    sk, kl, ct = offs["skeys"][0], offs["skeylen"][0], offs["nitems"][0]
+    for b in range(B):
+        keys = sorted(rng.integers(65, 91, 6, dtype=np.uint8).tobytes()
+                      for _ in range(cfg.node_cap))
+        lanes, lens = pack_keys(keys, kw)
+        img[b, sk:sk + cfg.node_cap * kw] = lanes.reshape(-1)
+        img[b, kl:kl + cfg.node_cap] = lens.astype(np.uint32)
+        img[b, ct] = rng.integers(1, cfg.node_cap + 1)
+        if count_top_bit and b % 2:
+            img[b, ct] |= np.uint32(2 ** 31)
+    q, qlen = pack_keys([rng.integers(65, 91, 6, dtype=np.uint8).tobytes()
+                         for _ in range(B)], kw)
+    kwargs = dict(keys_off=sk, lens_off=kl, count_off=ct,
+                  n_keys=cfg.node_cap, key_words=kw)
+    return q, qlen, img, kwargs
+
+
+def _merge_case(B, N, L, seed):
+    """The reference sweep's leaves (tests/test_kernels.py)."""
+    rng = np.random.default_rng(seed)
+    nitems = rng.integers(0, N + 1, (B,)).astype(np.int32)
+    nlog = rng.integers(0, L + 1, (B,)).astype(np.int32)
+    backptr = rng.integers(0, N + 1, (B, L)).astype(np.int32)
+    hints = np.stack([rng.integers(0, j + 1, (B,)) for j in range(L)],
+                     axis=1).astype(np.int32)
+    return nitems, nlog, backptr, hints
+
+
+@pytest.mark.parametrize("B,N,KW,lane_hi", [
+    (8, 16, 4, 60), (128, 64, 8, 60), (50, 8, 2, 60), (3, 80, 8, 60),
+    (256, 64, 8, 2 ** 32), (40, 8, 8, 2 ** 32)])
+def test_key_search_kernel_matches_plain(cuda, B, N, KW, lane_hi):
+    args = [_i32(a, cuda) for a in _search_case(B, N, KW, B + N, lane_hi)]
+    build.reset_launches()
+    got = key_search.key_search(*args)
+    assert build.LAUNCHES["key_search"] == 1
+    want = ref.key_search_ref(*args)
+    assert got.dtype == torch.int32 and torch.equal(want, got)
+    assert bool((got >= 0).any())
+
+
+@pytest.mark.parametrize("count_top_bit", [False, True])
+def test_key_search_image_kernel_matches_plain(cuda, count_top_bit):
+    """Random image rows with planted sorted blocks; with
+    ``count_top_bit`` half the live counts read as negative int32."""
+    q, qlen, img, kwargs = _image_case(SMALL, 70, 5, count_top_bit)
+    args = [_i32(a, cuda) for a in (q, qlen, img)]
+    got = key_search.key_search_image(*args, **kwargs)
+    want = ref.key_search_image_ref(*args, **kwargs)
+    assert torch.equal(want, got) and int(got.max()) >= 0
+    if count_top_bit:
+        assert bool((got[1::2] == -1).all())
+
+
+@pytest.mark.parametrize("B,N,L,wild", [(4, 8, 4, False),
+                                        (64, 64, 16, False),
+                                        (33, 16, 8, False),
+                                        (300, 64, 16, True),
+                                        (9, 40, 40, True)])
+def test_leaf_merge_kernel_matches_plain(cuda, B, N, L, wild):
+    """The reference sweep's leaves and, with ``wild``, int32 words from
+    the whole range (counts past the caps or negative, back pointers and
+    hints whose ranks wrap): ``perm`` must be equal in all T positions."""
+    rng = np.random.default_rng(B + N + L)
+    if wild:
+        nitems, nlog = (rng.integers(-3, n + 4, (B,)).astype(np.int32)
+                        for n in (N, L))
+        backptr, hints = (rng.integers(-2 ** 31, 2 ** 31, (B, L))
+                          .astype(np.int32) for _ in range(2))
+        hints[::2] %= L + 1
+    else:
+        nitems, nlog, backptr, hints = _merge_case(B, N, L, B + N + L)
+    args = [_i32(a, cuda) for a in (nitems, nlog, backptr, hints)]
+    build.reset_launches()
+    perm, valid = leaf_merge.leaf_merge(*args, node_cap=N, log_cap=L)
+    assert build.LAUNCHES["leaf_merge"] == 1
+    wp, wv = ref.leaf_merge_ref(*args, node_cap=N, log_cap=L)
+    assert torch.equal(wp, perm) and torch.equal(wv, valid)
+    assert torch.equal(perm.sort(dim=1).values,
+                       torch.arange(N + L, device=cuda,
+                                    dtype=torch.int32).expand(B, -1))
+
+
+def test_ksu_rsu_kernels_take_empty_batches(cuda):
+    """B = 0 returns empty results without a launch."""
+    build.reset_launches()
+    e1 = torch.zeros(0, dtype=torch.int32, device=cuda)
+    z = torch.zeros(0, 64, dtype=torch.int32, device=cuda)
+    q = torch.zeros(0, 8, dtype=torch.int32, device=cuda)
+    assert key_search.key_search(
+        q, e1, torch.zeros(0, 64, 8, dtype=torch.int32, device=cuda), z,
+        z).shape == (0,)
+    assert key_search.key_search_image(
+        q, e1, torch.zeros(0, 1273, dtype=torch.int32, device=cuda),
+        keys_off=7, lens_off=519, count_off=1, n_keys=64,
+        key_words=8).shape == (0,)
+    perm, valid = leaf_merge.leaf_merge(
+        e1, e1, *(torch.zeros(0, 16, dtype=torch.int32, device=cuda),) * 2,
+        node_cap=64, log_cap=16)
+    assert perm.shape == valid.shape == (0, 80)
+    assert build.LAUNCHES["key_search"] == build.LAUNCHES[
+        "key_search_image"] == build.LAUNCHES["leaf_merge"] == 0
+
+
+@pytest.mark.parametrize("case", ["offset_past_row", "wrong_dtype",
+                                  "on_cpu", "q_width", "merge_too_wide"])
+def test_ksu_rsu_kernels_reject_bad_input(cuda, case):
+    img = torch.zeros(4, 100, dtype=torch.int32, device=cuda)
+    q = torch.zeros(4, 2, dtype=torch.int32, device=cuda)
+    qlen = torch.zeros(4, dtype=torch.int32, device=cuda)
+    kw = dict(keys_off=10, lens_off=50, count_off=0, n_keys=8, key_words=2)
+    if case == "offset_past_row":
+        kw["lens_off"] = 95
+    elif case == "wrong_dtype":
+        img = img.float()
+    elif case == "on_cpu":
+        q = q.cpu()
+    elif case == "q_width":
+        q = torch.zeros(4, 3, dtype=torch.int32, device=cuda)
+    if case == "merge_too_wide":
+        e = torch.zeros(2, dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError):
+            leaf_merge.leaf_merge(e, e, *(torch.zeros(
+                2, 2000, dtype=torch.int32, device=cuda),) * 2,
+                node_cap=64, log_cap=2000)
+        return
+    with pytest.raises(ValueError):
+        key_search.key_search_image(q, qlen, img, **kw)
+
+
+def test_ksu_rsu_kernels_on_live_store_rows(cuda):
+    """On a small CUDA store's own image rows: the shortcut-block and
+    sorted-block searches of every row for random queries, and the merge
+    of every leaf row, equal their plain versions."""
+    cfg = SMALL
+    st = _store(cfg, 300, cuda)
+    image = st.export_snapshot().image
+    offs = NodeImageLayout.for_config(cfg).offsets()
+    rng = np.random.default_rng(6)
+    S = image.shape[0]
+    key, klen = _keys([int_key(int(i)) for i in rng.integers(0, 320, S)],
+                      cfg, cuda)
+    for keys, lens, count, n in (("sc_keys", "sc_keylen", "n_shortcuts",
+                                  cfg.n_shortcuts),
+                                 ("skeys", "skeylen", "nitems",
+                                  cfg.node_cap)):
+        kw = dict(keys_off=offs[keys][0], lens_off=offs[lens][0],
+                  count_off=offs[count][0], n_keys=n,
+                  key_words=cfg.key_words)
+        got = key_search.key_search_image(key, klen, image, **kw)
+        assert torch.equal(ref.key_search_image_ref(key, klen, image, **kw),
+                           got)
+    leaves = image[image[:, offs["ntype"][0]] == LEAF]
+
+    def col(name, width=1):
+        o = offs[name][0]
+        return leaves[:, o:o + width].contiguous().squeeze(1)
+    args = (col("nitems"), col("nlog"), col("log_backptr", cfg.log_cap),
+            col("log_hint", cfg.log_cap))
+    got = leaf_merge.leaf_merge(*args, node_cap=cfg.node_cap,
+                                log_cap=cfg.log_cap)
+    want = ref.leaf_merge_ref(*args, node_cap=cfg.node_cap,
+                              log_cap=cfg.log_cap)
+    assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+    assert bool((args[1] > 0).any())

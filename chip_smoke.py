@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of Honeycomb once on one NVIDIA GPU.
 
-Builds the port's eight CUDA kernels from the six sources in this
-checkout (one ``nvcc`` per source, all started together), then drives four
-main paths at the paper's node geometry (the default ``HoneycombConfig``:
-32 B keys, 16 B values, 1273-word node images), each with every kernel's
-launch count set to 0 just before it and read just after:
+Builds the port's nine CUDA kernels from the seven sources in this
+checkout (one ``nvcc`` per source, all started together), then drives five
+main paths, the store's at the paper's node geometry (the default
+``HoneycombConfig``: 32 B keys, 16 B values, 1273-word node images), each
+with every kernel's launch count set to 0 just before it and read just
+after:
 
 1. The single-shard ``HoneycombStore`` with 2^17 8-byte keys: GET batches
    and 8-key SCAN batches through the fused read kernel, about a thousand
@@ -44,6 +45,17 @@ launch count set to 0 just before it and read just after:
    24 field tensors must equal its primary's after every drain, and each
    primary's snapshot must equal a fresh full publish of its heap at the
    end.
+4. The serving engine: ``ServingEngine`` with qwen2.5-3b at its full
+   widths and depth (random bf16 weights from ``--seed``), 8 slots, pages
+   of 256 tokens, a ``PagedKVCache`` whose page table is a
+   ``HoneycombStore`` on the card.  16 requests of 1,024-4,000 prompt
+   tokens and 32 new tokens each: every decode step looks its block
+   tables up with one fused GET batch and runs the paged-attention kernel
+   in each of the 36 layers.  The page table's puts and deletes must
+   equal a dict model, every served token's logit must lie within a
+   tolerance of its row's maximum in a plain full forward, and
+   teacher-forced decode logits, through the kernel and through the plain
+   attention, must agree with that forward.
 
 Then each kernel is held against its plain PyTorch version on the card at
 the shapes its path gave it.  Each kernel's device time comes from a
@@ -94,6 +106,29 @@ EPOCH_WRITES = 8
 SERVICE_EPOCHS = 16
 SERIAL_EPOCHS = 2
 SERVICE_OPS = 2048
+# the serving path: qwen2.5-3b, 8 slots, pages of 256 tokens, 32 pages a
+# sequence; 16 requests of 1,024-4,000 prompt tokens and 32 new tokens
+SERVING_SLOTS = 8
+SERVING_PAGE = 256
+SERVING_MAX_SEQ = 8192
+SERVING_REQUESTS = 16
+SERVING_NEW_TOKENS = 32
+SERVING_TRACE_AT = 10           # trace decode steps 10-12 (no prefill)
+TEACHER_STEPS = 8
+QWEN_PARAMS = 3_397_103_616     # the reference's qwen2.5-3b param_count()
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 (data sheet)
+# logits of the random-weight model are about N(0, 1) (an RMS-normed
+# 2048-wide state times an lm_head of std 2048**-0.5); bf16 weights and
+# activations round at other steps in a full forward and in prefill +
+# decode, so their logits may differ by a few bf16 ulps at the top of
+# that range (0.03 each) after 36 layers:
+TEACHER_TOL = 0.25              # prefill/decode vs the full forward
+TOKEN_GAP_TOL = 0.25            # a served token's logit below the row max
+# kernel vs plain attention inside the same decode steps: only the f32
+# summation order of the attention differs, but a one-ulp bf16 difference
+# in an early layer's output grows through the later layers to the size
+# of any other rounding difference, so the bound is the same
+KERNEL_VS_PLAIN_TOL = 0.25
 
 
 class SmokeFailure(RuntimeError):
@@ -204,8 +239,15 @@ def device_all_ms(fns: list, reps: int, flush: torch.Tensor,
     flush's own fill is told apart by its name and left out.  A trace
     holding fewer than ``min_traced`` of the fills is taken again; the mean
     is over the calls whose fill the trace holds."""
-    fill = {name for name, _ in device_events(
-        lambda: [flush.fill_(0) for _ in range(8)])[0]}
+    # the flush's fill kernels by name, filled as the run fills; a probe
+    # trace that the profiler dropped whole is taken again
+    for _ in range(tries):
+        fill = {name for name, _ in device_events(
+            lambda: [flush.fill_(r) for r in range(8)])[0]}
+        if fill:
+            break
+    check(bool(fill), f"the profiler traced no flush fill, in each of "
+          f"{tries} traces")
     for fn in fns:
         fn()
 
@@ -219,6 +261,8 @@ def device_all_ms(fns: list, reps: int, flush: torch.Tensor,
         if fills >= reps * min_traced:
             return sum(t for name, t in evs if name not in fill) \
                 / fills / 1e3
+    print(f"  the flush's fills: {sorted(fill)}", file=sys.stderr)
+    print_activities(evs, "untimed trace", top=12)
     raise SmokeFailure(f"the profiler traced {fills} of {reps} calls, in "
                        f"each of {tries} traces")
 
@@ -265,7 +309,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
 
-    # ---- build every kernel of the four paths, one nvcc per source -------
+    # ---- build every kernel of the five paths, one nvcc per source -------
     t0 = time.perf_counter()
     reports = build.build(build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.3f} s")
@@ -297,11 +341,18 @@ def main() -> int:
     print("== service over the legacy layout ==")
     multi, svc_launches = service_legacy_path(args, dev, flush)
     kernels.append(multi)
+    print("== serving engine: qwen2.5-3b over a Honeycomb page table ==")
+    t0 = time.perf_counter()
+    paged, serve_launches = serving_path(args, dev, flush)
+    kernels.append(paged)
+    print(f"serving path with its checks and timings: "
+          f"{time.perf_counter() - t0:.3f} s")
     for k in kernels:         # each kernel's launches over the main paths
         by_path = {"single_shard": launches[k["name"]],
                    "replicated": repl_launches[k["name"]],
                    "service_legacy": svc_launches[k["name"]],
-                   "ksu_rsu": ksu_launches[k["name"]]}
+                   "ksu_rsu": ksu_launches[k["name"]],
+                   "serving": serve_launches[k["name"]]}
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
         check(k["launches"] > 0, f"{k['name']} never launched")
@@ -1681,6 +1732,306 @@ def service_legacy_path(args, dev, flush):
              "bound_ms": bound_ms, "bound_by": "bytes",
              "library_ms": library_ms, "row_scatter_packed_ms": row_ms,
              "D": D, "S": S}, launches)
+
+
+def serving_path(args, dev, flush):
+    """The serving engine at qwen2.5-3b's full widths and depth (random
+    bf16 weights from ``--seed``): ``ServingEngine`` with 8 slots, pages of
+    256 tokens and 32 pages a sequence (max_seq 8192), whose page table is
+    a ``HoneycombStore`` on the card, serves 16 requests of 1,024-4,000
+    prompt tokens and 32 new tokens each.  Every decode step looks its
+    block tables up with one fused GET batch (page allocations make the
+    next lookup sync a delta through the row scatter), and every attention
+    layer of the step runs the paged-attention kernel.  Then: every
+    request's length, the pages in use and the page table's puts/deletes
+    against a dict model, the launch counts, the served tokens against a
+    plain full forward, teacher-forced logits through the kernel and
+    through the plain attention against the full forward, and the kernel
+    against its plain version at the engine's own shapes and live lengths,
+    with its timings.  Returns the ``paged_attention`` entry of the
+    ``kernels`` line and the path's launch counts."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, paged_attention, ref
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine, page_key
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False (f32 products in full f32)")
+    t_path = time.perf_counter()
+    cfg = get_config("qwen2.5-3b")
+    P, slots, max_seq, new = SERVING_PAGE, SERVING_SLOTS, SERVING_MAX_SEQ, \
+        SERVING_NEW_TOKENS
+    n_params = cfg.param_count()
+    check(n_params == QWEN_PARAMS, f"qwen2.5-3b has {n_params} parameters "
+          f"by the port's schema, the reference counts {QWEN_PARAMS}")
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, batch_size=slots, max_seq=max_seq, page_size=P,
+                        seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = sum(t.numel() for t in sc.leaves(eng.model.params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in sc.leaves(eng.model.params))
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in sc.leaves(eng.pools))
+    check(held == n_params, f"the engine holds {held} parameters, the "
+          f"schema counts {n_params}")
+    print(f"qwen2.5-3b: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} "
+          f"parameters (the reference's param_count() is {QWEN_PARAMS}), "
+          f"{param_bytes} B of bf16 weights drawn on the card in "
+          f"{init_s:.3f} s; KV pools {eng.kv.n_pages} pages of {P} tokens, "
+          f"{pool_bytes} B")
+
+    rng = np.random.default_rng(args.seed)
+    lens = [int(n) for n in rng.integers(1024, 4001, SERVING_REQUESTS)]
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in lens]
+    rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+
+    # ---- the main path, every launch count set to 0 just before it -------
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    trace, live = None, None
+    t0 = time.perf_counter()
+    while True:
+        steps = eng.stats["decode_steps"]
+        if steps == SERVING_TRACE_AT:   # 3 decode-only steps, 8 slots busy
+            trace = device_events(lambda: eng.run_until_done(max_ticks=3))
+            # the 8 sequences' live lengths after them, and their pages
+            # (host-tree GETs, no launch), for the kernel's own check
+            live = []
+            for rid in rids[:slots]:
+                n = lens[rid] + SERVING_TRACE_AT + 3
+                live.append((n, [int.from_bytes(
+                    eng.kv.table.get(page_key(rid, b)), "big")
+                    for b in range(-(-n // P))]))
+        else:
+            eng.run_until_done(max_ticks=1)
+        if eng.stats["decode_steps"] == steps:
+            break                           # every request is done
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    outs = eng.run_until_done()
+
+    # ---- lengths, pages, the page table against a dict model, launches ---
+    check(all(len(outs[r]) == new for r in rids),
+          f"a request did not return {new} tokens")
+    check(eng.kv.pages_in_use == 1, f"{eng.kv.pages_in_use} pages in use "
+          f"after the run, not the scratch page alone")
+    table, puts, deletes = {}, 0, 0
+    for rid, S in zip(rids, lens):
+        for b in range(-(-S // P)):             # prefill: the padded prompt
+            table[(rid, b)] = True
+            puts += 1
+        for pos in range(S, S + new - 1):       # each decode step's token
+            if (rid, pos // P) not in table:
+                table[(rid, pos // P)] = True
+                puts += 1
+        for b in range(-(-(S + new) // P)):     # free on completion
+            deletes += table.pop((rid, b), False)
+    st = eng.kv.table.stats
+    check(not table and st.puts == puts and st.deletes == deletes,
+          f"page table puts/deletes {st.puts}/{st.deletes}, the dict model "
+          f"{puts}/{deletes} ({len(table)} pages left)")
+    steps = eng.stats["decode_steps"]
+    check(launches["paged_attention"] == cfg.n_layers * steps,
+          f"{launches['paged_attention']} paged_attention launches for "
+          f"{steps} decode steps of {cfg.n_layers} layers")
+    check(launches["fused_get"] == steps and launches["row_scatter"] > 0,
+          f"block-table lookups: {launches['fused_get']} fused GETs for "
+          f"{steps} decode steps, {launches['row_scatter']} row scatters")
+    check(all(v == 0 for k, v in launches.items() if k not in
+              ("paged_attention", "fused_get", "row_scatter")),
+          f"the serving path launched another kernel: {launches}")
+    prefill_ms = [eng.prefill_s[r] * 1e3 for r in rids]
+    decode_ms = [t * 1e3 for i, t in enumerate(eng.decode_s)
+                 if not SERVING_TRACE_AT <= i < SERVING_TRACE_AT + 3]
+    events, window_us = trace
+    busy_us = sum(t for _, t in events)
+    print(f"served {len(rids)} requests ({SERVING_REQUESTS // slots} waves "
+          f"of {slots} slots), prompts {min(lens)}-{max(lens)} tokens "
+          f"(padded to {P}), {new} new tokens each: {eng.stats['tokens']} "
+          f"tokens, {steps} decode steps in {run_s:.3f} s, "
+          f"{eng.stats['tokens'] / run_s:.1f} tokens/s (host clock)")
+    print(f"  prefill per request (host clock, ms, prompt tokens): "
+          + ", ".join(f"{m:.1f} ({n})" for m, n in zip(prefill_ms, lens)))
+    print(f"  decode step (host clock, block-table GET batch of "
+          f"{slots * eng.pps} keys, {cfg.n_layers} layers, {slots} slots): "
+          f"median {statistics.median(decode_ms):.3f} ms, max "
+          f"{max(decode_ms):.3f} ms over {len(decode_ms)} untraced steps")
+    print(f"  device busy {busy_us / window_us:.4f} of 3 traced decode steps "
+          f"({busy_us:.1f} of {window_us:.1f} us)")
+    print_activities(events, "decode steps")
+    print(f"  page table: puts {st.puts} == deletes {st.deletes} == the dict "
+          f"model's; pages in use after the run 1 (scratch); launches "
+          f"{launches}")
+
+    print(f"  ({time.perf_counter() - t_path:.3f} s into the path)")
+
+    # ---- the served tokens against a plain full forward -------------------
+    gaps = []
+    for rid in (int(np.argmin(lens)), int(np.argmax(lens))):
+        S, out = lens[rid], outs[rid]
+        seq = np.concatenate([prompts[rid], np.asarray(out[:-1], np.int32)])
+        logits = eng.model(torch.from_numpy(seq[None]).to(dev))[0, S - 1:]
+        rows = torch.arange(new, device=dev)
+        gap = logits.max(dim=-1).values \
+            - logits[rows, torch.tensor(out, device=dev)]
+        gaps.append(float(gap.max()))
+        agree = int((logits.argmax(dim=-1).cpu()
+                     == torch.tensor(out)).sum())
+        print(f"  request {rid} ({S} prompt tokens): the full forward's "
+              f"argmax equals {agree} of {new} served tokens; largest gap "
+              f"between a served token's logit and its row's max "
+              f"{gaps[-1]:.4f} (tolerance {TOKEN_GAP_TOL})")
+        del logits
+    check(max(gaps) <= TOKEN_GAP_TOL, f"a served token's logit lies "
+          f"{max(gaps):.4f} below its row's max in the full forward")
+
+    print(f"  ({time.perf_counter() - t_path:.3f} s into the path)")
+
+    # ---- teacher-forced: prefill + 8 decode steps vs the full forward -----
+    rid = int(np.argmax(lens))
+    S, out = lens[rid], outs[rid]
+    feed = np.asarray(out[:TEACHER_STEPS], np.int32)
+    full = eng.model(torch.from_numpy(np.concatenate(
+        [prompts[rid], feed])[None]).to(dev))[0, S - 1:]
+    padded = np.pad(prompts[rid], (0, -S % P))
+    with torch.inference_mode():
+        first, cache = eng.model.prefill(torch.from_numpy(padded[None])
+                                         .to(dev), P, S - 1)
+        spare = {n: {k: torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+                     for k, t in c.items()} for n, c in cache.layers.items()}
+    pps = len(padded) // P + 1
+    decoded, step_ms = {}, {}
+    for name, attn in (("kernel", None), ("plain", ref.paged_attention_ref)):
+        c = tf.DecodeCache(sc.map_tree(torch.clone, spare),
+                           torch.arange(pps, dtype=torch.int32,
+                                        device=dev)[None],
+                           torch.tensor([S], dtype=torch.int32, device=dev))
+        rows, ts = [], []
+        for i in range(TEACHER_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg, c = eng.model.decode_step(
+                c, torch.tensor([[int(feed[i])]], device=dev), P, attn)
+            rows.append(lg[0])
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        decoded[name] = torch.stack(rows)
+        step_ms[name] = statistics.median(ts)
+    prefill_err = float((first[0] - full[0]).abs().max())
+    teacher = {n: float((d - full[1:]).abs().max())
+               for n, d in decoded.items()}
+    between = float((decoded["kernel"] - decoded["plain"]).abs().max())
+    print(f"  teacher-forced, request {rid} ({S} prompt tokens): prefill + "
+          f"{TEACHER_STEPS} decode steps vs the full forward's logits "
+          f"(|logit| up to {float(full.abs().max()):.2f}): max abs diff "
+          f"through the kernel {teacher['kernel']:.4f}, through the plain "
+          f"attention {teacher['plain']:.4f} (tolerance {TEACHER_TOL}: bf16 "
+          f"weights and activations round at other steps in the two "
+          f"orders); kernel vs plain attention {between:.4f} (tolerance "
+          f"{KERNEL_VS_PLAIN_TOL}); prefill's last-token logits "
+          f"{prefill_err:.4f}; decode step of one sequence, median host "
+          f"clock: kernel {step_ms['kernel']:.3f} ms, plain attention "
+          f"{step_ms['plain']:.3f} ms")
+    check(max(teacher.values()) <= TEACHER_TOL and prefill_err <= TEACHER_TOL,
+          f"teacher-forced logits differ from the full forward by "
+          f"{teacher} (prefill {prefill_err:.4f})")
+    check(between <= KERNEL_VS_PLAIN_TOL, f"decode logits through the kernel "
+          f"and through the plain attention differ by {between:.4f}")
+    del full, first, cache, spare, decoded
+
+    print(f"  ({time.perf_counter() - t_path:.3f} s into the path)")
+
+    # ---- the kernel vs its plain version at the engine's shapes ----------
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kp = eng.pools["l0"]["k_pages"][0]          # layer 0's live pool
+    vp = eng.pools["l0"]["v_pages"][0]
+    bt = torch.zeros(slots, eng.pps, dtype=torch.int32)
+    for i, (_, pages) in enumerate(live):     # past seq_lens: page 0
+        bt[i, :len(pages)] = torch.tensor(pages)
+    bt = bt.to(dev)
+    sl = torch.tensor([n for n, _ in live], dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    q = torch.randn(slots, H, D, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    scale = D ** -0.5
+    err = 0.0
+    for dtype, tol in ((torch.bfloat16, dict(rtol=2 ** -7, atol=1e-6)),
+                       (torch.float32, dict(rtol=1e-5, atol=1e-5))):
+        args_ = (q.to(dtype), kp.to(dtype), vp.to(dtype), bt, sl)
+        got = paged_attention.paged_attention(*args_, scale=scale)
+        want = ref.paged_attention_ref(*args_, scale=scale)
+        e = float((got.float() - want.float()).abs().max())
+        try:
+            torch.testing.assert_close(got, want, **tol)
+        except AssertionError as exc:
+            raise SmokeFailure(f"paged_attention ({dtype}) vs plain: {exc}")
+        err = max(err, e)
+        print(f"paged_attention vs its plain version, {dtype} pools: max abs "
+              f"err {e:.3g} (tolerance rtol {tol['rtol']:.3g}, atol "
+              f"{tol['atol']:.3g})")
+    call = [lambda: paged_attention.paged_attention(q, kp, vp, bt, sl,
+                                                    scale=scale)]
+    ms = device_ms(call, 64, "paged_attention_kernel", flush)
+    wrapper_ms = cuda_ms(call, 200)
+    plain_ms = cuda_ms([lambda: ref.paged_attention_ref(q, kp, vp, bt, sl,
+                                                        scale=scale)], 16)
+    # partial yardstick: SDPA over the K/V already gathered to dense
+    # [B, KVH, PPS * P, D] (no page gather), the window as a mask
+    kd = kp[bt.long()].reshape(slots, -1, KVH, D).transpose(1, 2) \
+        .contiguous()
+    vd = vp[bt.long()].reshape(slots, -1, KVH, D).transpose(1, 2) \
+        .contiguous()
+    mask = (torch.arange(kd.shape[2], device=dev)[None, :]
+            < sl[:, None])[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None], kd, vd,
+                                              attn_mask=mask, scale=scale,
+                                              enable_gqa=True)
+    sdpa_err = float((sdpa()[:, :, 0].float() - ref.paged_attention_ref(
+        q, kp, vp, bt, sl, scale=scale).float()).abs().max())
+    library_ms = device_all_ms([sdpa], 64, flush)
+    live_pos = int(sl.sum())
+    io = live_pos * KVH * D * 2 * kp.element_size() \
+        + 2 * q.numel() * q.element_size() \
+        + 4 * (sum(len(pages) for _, pages in live) + 2 * slots)
+    ops_ = 4 * H * D * live_pos
+    bytes_ms = io / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_ / BF16_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"paged_attention at B = {slots}, H = {H}, KVH = {KVH}, D = {D}, "
+          f"P = {P}, PPS = {eng.pps}, bf16, live lengths "
+          f"{[n for n, _ in live]}: kernel {ms:.4f} ms device time (L2 "
+          f"flushed), {wrapper_ms:.4f} ms per call through the wrapper back "
+          f"to back (plain {plain_ms:.4f} ms), bound {bound_ms:.6f} ms "
+          f"({io} B over {HBM_BYTES_PER_S:.3g} B/s; {ops_} flops over "
+          f"{BF16_FLOPS:.3g}/s take {ops_ms:.6f} ms); partial yardstick "
+          f"scaled_dot_product_attention over the gathered K/V "
+          f"{library_ms:.4f} ms device time (max abs diff to plain "
+          f"{sdpa_err:.3g})")
+    entry = {"name": "paged_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention.py:85",
+             "launches": launches["paged_attention"], "max_abs_err": err,
+             "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms,
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "library_ms": library_ms, "B": slots,
+             "live_positions": live_pos,
+             "decode_step_ms": statistics.median(decode_ms),
+             "tokens_per_s": eng.stats["tokens"] / run_s}
+    del eng, kd, vd
+    torch.cuda.empty_cache()
+    return entry, launches
 
 
 if __name__ == "__main__":

@@ -29,11 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"fused_get": 0, "fused_scan": 0, "row_scatter": 0,
             "log_replay": 0, "multi_scatter": 0, "key_search": 0,
-            "key_search_image": 0, "leaf_merge": 0}
+            "key_search_image": 0, "leaf_merge": 0, "paged_attention": 0}
 
 #: every CUDA source of the port, by name (``csrc/<name>.cu``)
 SOURCES = ("fused_read", "row_scatter", "log_replay", "multi_scatter",
-           "key_search", "leaf_merge")
+           "key_search", "leaf_merge", "paged_attention")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LAUNCHERS: dict[str, object] = {}
@@ -117,15 +117,18 @@ def check(err: int, what: str) -> None:
 
 
 def check_tensor(t, name: str, ndim: int, device=None, dtype=None) -> None:
-    """A kernel argument must be a contiguous 32-bit CUDA tensor of the
-    given rank (on ``device`` and of ``dtype`` when they are named)."""
+    """A kernel argument must be a contiguous CUDA tensor of 32-bit words
+    or bfloat16 of the given rank (on ``device`` and of ``dtype`` when
+    they are named)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{name} must lie on {device or 'a CUDA device'}, "
                          f"got {t.device}")
-    if t.dtype not in (torch.int32, torch.uint32, torch.float32):
-        raise ValueError(f"{name} must hold 4-byte elements, got {t.dtype}")
+    if t.dtype not in (torch.int32, torch.uint32, torch.float32,
+                       torch.bfloat16):
+        raise ValueError(f"{name} must hold 4-byte elements or bfloat16, "
+                         f"got {t.dtype}")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:

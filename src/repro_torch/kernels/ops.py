@@ -5,7 +5,8 @@ plain PyTorch version (``kernels/ref.py``), a CUDA tensor launches the
 hand-written kernel (``key_search.py``: the KSU floor search, plain and
 over packed node images; ``leaf_merge.py``: the RSU merge;
 ``delta_scatter.py``: row scatter, multi-field scatter and log replay;
-``fused_read.py``), and any other device raises.  A CUDA call never falls
+``fused_read.py``; ``paged_attention.py``: decode attention over paged
+KV), and any other device raises.  A CUDA call never falls
 back to the plain version.
 
 ``READ_DISPATCHES`` meters dispatched launches per read batch, recorded
@@ -25,6 +26,7 @@ from . import delta_scatter as _ds
 from . import fused_read as _fr
 from . import key_search as _ks
 from . import leaf_merge as _lm
+from . import paged_attention as _pa
 from . import ref as _ref
 
 READ_DISPATCHES: collections.Counter = collections.Counter()
@@ -191,3 +193,18 @@ def batched_scan_fused(snap, lo, lolen, hi, hilen, *, cfg,
                                       lb_fraction=lb_fraction)
     return _ref.batched_scan_fused_ref(snap, lo, lolen, hi, hilen, cfg=cfg,
                                        lb_fraction=lb_fraction)
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
+                    start_pos=None, *, scale: float | None = None,
+                    softcap: float = 0.0):
+    """Decode attention over paged KV: q [B, H, D] against the positions
+    ``start_pos[b] <= pos < seq_lens[b]`` of the pages ``block_tables[b]``
+    names in k_pages/v_pages [NP, P, KVH, D].  Returns [B, H, D] of q's
+    type; an empty window gives zeros."""
+    kw = dict(scale=scale, softcap=softcap)
+    if _on_cuda(q):
+        return _pa.paged_attention(q, k_pages, v_pages, block_tables,
+                                   seq_lens, start_pos, **kw)
+    return _ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                    seq_lens, start_pos, **kw)

@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the hand-written kernels (port of the
 oracles in ``repro.kernels.ref``: the KSU floor search, plain and over
 packed node images, the RSU leaf merge, the fused reads, the delta-sync
-row scatter, the legacy layout's multi-field scatter and the log-replay
-scatter).
+row scatter, the legacy layout's multi-field scatter, the log-replay
+scatter and paged decode attention).
 
 The kernel wrappers (``key_search.py``, ``leaf_merge.py``,
 ``delta_scatter.py``, ``fused_read.py``) are held to these bit for bit,
-and ``ops.py`` runs them for tensors on the CPU.
+``paged_attention.py`` within a tolerance (its sums run in another
+order), and ``ops.py`` runs them for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -186,3 +187,42 @@ def batched_get_fused_ref(snap, key, klen, *, cfg, lb_fraction: float = 0.0):
     res, meters = batched_scan_fused_ref(snap, key, klen, key, klen,
                                          cfg=cfg, lb_fraction=lb_fraction)
     return _rp.get_from_scan(res, key, klen), meters
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_tables: torch.Tensor,
+                        seq_lens: torch.Tensor, start_pos=None, *,
+                        scale: float | None = None,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Decode attention over paged KV, gather then dense: sequence ``b``'s
+    query heads attend (GQA: head ``h`` reads KV head ``h // (H // KVH)``)
+    to the positions ``start_pos[b] <= pos < seq_lens[b]`` of the pages
+    ``block_tables[b]`` names, in f32, with ``tanh`` soft-capping when
+    ``softcap`` is set.  A sequence whose window is empty gets zeros, as
+    the Pallas kernel gives (the reference's jnp oracle would give the mean
+    of V over every position instead).
+
+    q [B, H, D]; k_pages, v_pages [NP, P, KVH, D]; block_tables [B, PPS],
+    seq_lens and start_pos [B] int32.  Returns [B, H, D] of q's type."""
+    B, H, D = q.shape
+    _, P, KVH, _ = k_pages.shape
+    G = H // KVH
+    PPS = block_tables.shape[1]
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    if start_pos is None:
+        start_pos = torch.zeros_like(seq_lens)
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, PPS * P, KVH, D)
+    v = v_pages[bt].reshape(B, PPS * P, KVH, D)
+    qg = q.reshape(B, KVH, G, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    pos = torch.arange(PPS * P, device=q.device)[None, :]
+    mask = (pos < seq_lens[:, None]) & (pos >= start_pos[:, None])
+    s = torch.where(mask[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    o = torch.where(mask.any(dim=1)[:, None, None, None], o, 0.0)
+    return o.reshape(B, H, D).to(q.dtype)

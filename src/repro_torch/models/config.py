@@ -1,0 +1,92 @@
+"""Architecture configuration (port of ``repro.models.config``).
+
+The same frozen dataclass as the reference, field for field, and its
+decode/prefill shape table.  The port builds only the dense attention
+stacks (layer kinds ``G``/``L`` with an MLP): ``param_count`` goes through
+the port's own schema (``models/transformer.py``), which raises for the
+kinds it does not carry (ROADMAP A11).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int                    # padded to shardable multiple; see configs
+    raw_vocab: int = 0            # the published vocab before padding
+
+    # attention features
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False
+    window: int = 0               # sliding-window size for local layers
+    # layer pattern, repeated across depth: 'G' global attn, 'L' local attn,
+    # 'M' mamba block.  Must divide n_layers.
+    pattern: str = "G"
+    attn_softcap: float = 0.0     # gemma2-style logit soft-capping
+    final_softcap: float = 0.0
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1            # MoE MLP every k-th layer (jamba: 2)
+    capacity_factor: float = 1.25
+
+    # SSM (mamba2 / jamba mamba layers)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    conv_width: int = 4
+
+    # encoder-decoder (seamless)
+    n_enc_layers: int = 0         # 0 => decoder-only
+    enc_seq_divisor: int = 8      # encoder frames = seq // divisor
+
+    # modality frontend stub: inputs arrive as embeddings, not token ids
+    embeds_in: bool = False
+
+    dtype: str = "bfloat16"
+    notes: str = ""
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    @property
+    def n_superblocks(self) -> int:
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"{self.arch_id}: pattern {self.pattern!r} must "
+                             f"divide n_layers={self.n_layers}")
+        return self.n_layers // len(self.pattern)
+
+    def param_count(self) -> int:
+        """Total parameters (analytic, from the port's schema)."""
+        from . import transformer
+        from .schema import n_params
+        return n_params(transformer.schema(self))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str                     # train_4k | prefill_32k | ...
+    kind: str                     # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    page_size: int = 256          # KV page granularity (honeycomb-indexed)
+
+
+LM_SHAPES = (
+    ShapeConfig("train_4k", "train", 4096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    ShapeConfig("decode_32k", "decode", 32768, 128),
+    ShapeConfig("long_500k", "decode", 524288, 1),
+)
+

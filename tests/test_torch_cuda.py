@@ -20,7 +20,8 @@ from repro_torch.core.heap import LEAF
 from repro_torch.core.keys import int_key, pack_keys
 from repro_torch.core.read_path import attach_cache_image
 from repro_torch.kernels import (build, delta_scatter, fused_read,
-                                 key_search, leaf_merge, ref)
+                                 key_search, leaf_merge, paged_attention,
+                                 ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -450,6 +451,27 @@ def _merge_case(B, N, L, seed):
     return nitems, nlog, backptr, hints
 
 
+#: (B, H, KVH, D, P, PPS): the reference's sweep (tests/test_kernels.py),
+#: then G = 1 with D = 80 and G = 8 with D = 128
+PAGED_SWEEP = [(2, 4, 2, 16, 8, 3), (4, 8, 8, 32, 16, 2), (2, 8, 2, 16, 8, 4),
+               (3, 4, 4, 80, 8, 3), (2, 16, 2, 128, 16, 3)]
+
+
+def _paged_case(B, H, KVH, D, P, PPS, seed, NP=16, start_hi=2):
+    """The reference sweep's paged-attention inputs (tests/test_kernels.py),
+    f32: random pages, seq_lens in [1, P * PPS], start_pos below seq_lens
+    (every window holds at least one position) and below ``start_hi``."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, D)).astype(np.float32)
+    kp = rng.normal(size=(NP, P, KVH, D)).astype(np.float32)
+    vp = rng.normal(size=(NP, P, KVH, D)).astype(np.float32)
+    bt = rng.integers(0, NP, (B, PPS)).astype(np.int32)
+    sl = rng.integers(1, P * PPS + 1, (B,)).astype(np.int32)
+    start = np.minimum(rng.integers(0, start_hi, (B,)), sl - 1) \
+        .astype(np.int32)
+    return q, kp, vp, bt, sl, start
+
+
 @pytest.mark.parametrize("B,N,KW,lane_hi", [
     (8, 16, 4, 60), (128, 64, 8, 60), (50, 8, 2, 60), (3, 80, 8, 60),
     (256, 64, 8, 2 ** 32), (40, 8, 8, 2 ** 32)])
@@ -587,3 +609,136 @@ def test_ksu_rsu_kernels_on_live_store_rows(cuda):
                               log_cap=cfg.log_cap)
     assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
     assert bool((args[1] > 0).any())
+
+
+#: kernel vs plain: f32 to 1e-5 (the sums run in another order); a bf16
+#: output to one bf16 ulp (2**-7 relative): both round nearly the same f32
+PAGED_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6)}
+
+
+def _paged_args(case, device, q_dtype, kv_dtype):
+    q, kp, vp, bt, sl, start = (torch.from_numpy(a).to(device) for a in case)
+    return (q.to(q_dtype), kp.to(kv_dtype), vp.to(kv_dtype), bt, sl, start)
+
+
+def _paged_check(args, **kw):
+    build.reset_launches()
+    got = paged_attention.paged_attention(*args, **kw)
+    assert build.LAUNCHES["paged_attention"] == 1
+    want = ref.paged_attention_ref(*args, **kw)
+    assert got.dtype == want.dtype == args[0].dtype
+    torch.testing.assert_close(got, want, **PAGED_TOL[got.dtype])
+    return got
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("B,H,KVH,D,P,PPS", PAGED_SWEEP)
+def test_paged_attention_kernel_matches_plain(cuda, B, H, KVH, D, P, PPS,
+                                              q_dtype, kv_dtype):
+    case = _paged_case(B, H, KVH, D, P, PPS, seed=B + H + D, start_hi=P)
+    _paged_check(_paged_args(case, cuda, q_dtype, kv_dtype), softcap=30.0)
+    _paged_check(_paged_args(case, cuda, q_dtype, kv_dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_page_edges_windows_scratch(cuda, dtype):
+    """seq_lens on page edges and one past them, windows starting deep
+    inside the sequence, block-table entries past seq_lens pointing at page
+    0, P = 256 as the serving path has it, and B = 1."""
+    B, H, KVH, D, P, PPS = 6, 16, 2, 128, 256, 5
+    q, kp, vp, bt, sl, start = _paged_case(B, H, KVH, D, P, PPS, seed=9,
+                                           NP=24)
+    sl[:] = [P, 2 * P, 2 * P + 1, 5 * P, 1, 3 * P - 1]
+    start[:] = [0, P - 1, 2 * P, 4 * P + 7, 0, 300]
+    for b in range(B):
+        bt[b, -(-sl[b] // P):] = 0
+    case = (q, kp, vp, bt, sl, start)
+    _paged_check(_paged_args(case, cuda, dtype, dtype), scale=0.1)
+    one = tuple(a[:1] if a.ndim and a.shape[0] == B else a for a in case)
+    _paged_check(_paged_args(one, cuda, dtype, dtype))
+
+
+def test_paged_attention_kernel_empty_window_gives_zeros(cuda):
+    case = list(_paged_case(3, 8, 2, 32, 8, 3, seed=4))
+    case[5] = case[5].copy()
+    case[5][1] = case[4][1]
+    got = _paged_check(_paged_args(case, cuda, torch.float32,
+                                   torch.float32))
+    assert float(got[1].abs().max()) == 0.0 and float(got.abs().max()) > 0
+
+
+@pytest.mark.parametrize("bad", ["float16", "int32", "mixed_pools",
+                                 "noncontiguous", "heads", "head_dim"])
+def test_paged_attention_kernel_rejects_bad_input(cuda, bad):
+    B, H, KVH, D = 2, 8, 2, 32
+    q, kp, vp, bt, sl, start = _paged_args(
+        _paged_case(B, H, KVH, D, 8, 3, seed=5), cuda, torch.float32,
+        torch.float32)
+    if bad == "float16":
+        q = q.half()
+    elif bad == "int32":
+        kp, vp = kp.int(), vp.int()
+    elif bad == "mixed_pools":
+        vp = vp.bfloat16()
+    elif bad == "noncontiguous":
+        q = q.transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "heads":
+        q = torch.zeros(B, 7, D, device=cuda)
+    else:
+        q, kp, vp = q[..., :12].contiguous(), kp[..., :12].contiguous(), \
+            vp[..., :12].contiguous()
+    build.reset_launches()
+    with pytest.raises(ValueError):
+        paged_attention.paged_attention(q, kp, vp, bt, sl, start)
+    assert build.LAUNCHES["paged_attention"] == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2p5_3b", "gemma2_27b"])
+def test_serving_engine_on_cuda_matches_cpu(cuda, arch):
+    """The smoke-config engine on the card against the same engine on the
+    CPU: with the parameters in f32 the greedy tokens, stats and page
+    tables agree (bf16 pools, so the kernel runs with f32 q over bf16
+    pages); with bf16 parameters, the decode logits of a prefilled batch
+    agree to 5e-2 (bf16 activations round at other steps on the card)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+    cfg = get_smoke_config(arch)
+    params = sc.init(tf.schema(cfg), torch.Generator().manual_seed(0), "cpu")
+    f32 = sc.map_tree(lambda t: t.float(), params)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab, (int(n),))
+               for n in rng.integers(5, 45, 5)]
+    outs, engines = [], []
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(cfg, f32, batch_size=2, max_seq=128,
+                            page_size=16, device=dev)
+        rids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        build.reset_launches()
+        got = eng.run_until_done()
+        outs.append([got[r] for r in rids])
+        engines.append(eng)
+    assert outs[0] == outs[1]
+    assert engines[0].stats == engines[1].stats
+    assert build.LAUNCHES["paged_attention"] == \
+        cfg.n_layers * engines[1].stats["decode_steps"]
+    assert build.LAUNCHES["fused_get"] == engines[1].stats["decode_steps"]
+
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 32)))
+    logits = []
+    for dev in ("cpu", cuda):
+        p = sc.map_tree(lambda t: t.to(dev), params)
+        _, cache = tf.prefill(p, cfg, toks.to(dev), 16, 29)
+        cache = cache._replace(seq_lens=torch.tensor(
+            [28, 25], dtype=torch.int32, device=dev))
+        step = []
+        for i in range(3):
+            lg, cache = tf.decode_step(p, cfg, cache,
+                                       toks[:, i:i + 1].to(dev), 16)
+            step.append(lg.float().cpu())
+        logits.append(torch.stack(step))
+    torch.testing.assert_close(logits[1], logits[0], rtol=5e-2, atol=5e-2)

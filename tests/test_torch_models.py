@@ -1,0 +1,256 @@
+"""The port's dense transformer held to the JAX reference: layers, the
+full forward, prefill and paged decode, on the reference's own parameters
+carried over by ``schema.from_numpy`` at the qwen2.5 and gemma2 smoke
+configs (gemma2: local/global layers, a sliding window and both
+softcaps), and the parameter schemas at full size.
+
+Tolerances: with the parameters cast to f32, 1e-5 on single layers and
+1e-4 on whole-model logits (the two frameworks sum in other orders, f32
+keeps ~7 digits); with the bf16 parameters as drawn, 5e-2 on logits of
+magnitude ~1 (bf16 keeps 8 mantissa bits, and the frameworks round the
+activations at other steps).  Inputs are made from a seed with numpy."""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core  # noqa: F401  (before repro.kernels: breaks an import cycle)
+from repro.configs import get_config as jget_config
+from repro.configs import get_smoke_config as jget_smoke
+from repro.models import layers as jll
+from repro.models import schema as jsc
+from repro.models import transformer as jtf
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.models import layers as tll
+from repro_torch.models import schema as tsc
+from repro_torch.models import transformer as ttf
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+def reference_params(arch, dtype=np.float32, seed=0):
+    """The reference's initial parameters for the smoke config: (jax tree,
+    numpy tree), cast to ``dtype`` unless it is None (bf16 as drawn)."""
+    cfg = jget_smoke(arch)
+    params = jsc.init(jtf.schema(cfg), jax.random.key(seed))
+    npt = jax.tree.map(np.asarray, params)
+    if dtype is not None:
+        npt = jax.tree.map(lambda a: a.astype(dtype), npt)
+    return jax.tree.map(jnp.asarray, npt), npt
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_schema_and_param_count_match_reference(arch):
+    jcfg, tcfg = jget_config(arch), get_config(arch)
+    assert tcfg == type(tcfg)(**{f: getattr(jcfg, f) for f in
+                                 tcfg.__dataclass_fields__})
+    jflat = _flat(jtf.schema(jcfg))
+    tflat = _flat(ttf.schema(tcfg))
+    assert jflat.keys() == tflat.keys()
+    for k in jflat:
+        assert jflat[k].shape == tflat[k].shape, k
+        assert np.dtype(jflat[k].dtype).name == \
+            str(tflat[k].dtype).removeprefix("torch."), k
+    assert tcfg.param_count() == jcfg.param_count()
+    assert get_smoke_config(arch).param_count() == \
+        jget_smoke(arch).param_count()
+
+
+def test_unported_configs_raise():
+    with pytest.raises(KeyError, match="ROADMAP A11"):
+        get_config("mixtral-8x22b")
+    moe = get_smoke_config("qwen2p5_3b").__class__(
+        arch_id="moe", family="moe", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, head_dim=16, d_ff=128, vocab=256, n_experts=4,
+        top_k=2)
+    for cfg in (moe, get_smoke_config("gemma2_27b").__class__(
+            arch_id="ssm", family="ssm", n_layers=2, d_model=64, n_heads=0,
+            n_kv_heads=1, head_dim=0, d_ff=0, vocab=256, pattern="M")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            ttf.schema(cfg)
+
+
+def test_from_numpy_carries_bf16_leaf_for_leaf():
+    _, npt = reference_params("qwen2p5_3b", dtype=None)
+    t = tsc.from_numpy(npt)
+    jf, tf_ = _flat(npt), _flat(t)
+    assert jf.keys() == tf_.keys()
+    assert str(jf["/embed"].dtype) == "bfloat16"
+    for k in jf:
+        assert str(tf_[k].dtype).removeprefix("torch.") == \
+            np.dtype(jf[k].dtype).name, k
+        np.testing.assert_array_equal(_np(tf_[k]),
+                                      np.asarray(jf[k], np.float32), k)
+    # the port's own initializer gives the same tree of shapes and types
+    cfg = get_smoke_config("qwen2p5_3b")
+    mine = _flat(tsc.init(ttf.schema(cfg), torch.Generator().manual_seed(0),
+                          "cpu"))
+    assert {k: (tuple(v.shape), v.dtype) for k, v in mine.items()} == \
+        {k: (tuple(v.shape), v.dtype) for k, v in tf_.items()}
+
+
+def test_norm_rope_mlp_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 6, 4, 16)).astype(np.float32)
+    pos = rng.integers(0, 4000, (2, 6)).astype(np.int32)
+    np.testing.assert_allclose(
+        _np(tll.rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6)),
+        np.asarray(jll.rope(jnp.asarray(x), jnp.asarray(pos), 1e6)),
+        rtol=1e-5, atol=2e-5)
+    jp, npt = reference_params("qwen2p5_3b")
+    lp = jax.tree.map(lambda a: a[0], jp["blocks"]["l0"])
+    tp = tsc.from_numpy(jax.tree.map(lambda a: a[0], npt["blocks"]["l0"]))
+    h = rng.normal(size=(2, 5, 64)).astype(np.float32) * 3
+    np.testing.assert_allclose(
+        _np(tll.rmsnorm(tp["ln1"], torch.from_numpy(h))),
+        np.asarray(jll.rmsnorm(lp["ln1"], jnp.asarray(h))), **F32_TOL)
+    np.testing.assert_allclose(
+        _np(tll.mlp(tp["ffn"], torch.from_numpy(h))),
+        np.asarray(jll.mlp(lp["ffn"], jnp.asarray(h))), **F32_TOL)
+
+
+@pytest.mark.parametrize("arch,local,lens,q_chunk", [
+    ("qwen2p5_3b", False, None, 4096), ("gemma2_27b", True, None, 4096),
+    ("gemma2_27b", False, [40, 17], 4096), ("qwen2p5_3b", False, None, 16)])
+def test_attention_matches_reference(arch, local, lens, q_chunk):
+    """Global, sliding-window (window 32 of 48) and ``seq_lens`` masks, and
+    queries in chunks of 16."""
+    cfg = get_smoke_config(arch)
+    jp, npt = reference_params(arch)
+    lp = jax.tree.map(lambda a: a[0], jp["blocks"]["l0"]["attn"])
+    tp = tsc.from_numpy(jax.tree.map(lambda a: a[0],
+                                     npt["blocks"]["l0"]["attn"]))
+    x = np.random.default_rng(1).normal(size=(2, 48, 64)).astype(np.float32)
+    sl = None if lens is None else np.asarray(lens, np.int32)
+    want, (wk, wv) = jll.attention(
+        lp, jnp.asarray(x), jget_smoke(arch), local=local,
+        seq_lens=None if sl is None else jnp.asarray(sl), q_chunk=q_chunk)
+    got, (gk, gv) = tll.attention(
+        tp, torch.from_numpy(x), cfg, local=local,
+        seq_lens=None if sl is None else torch.from_numpy(sl),
+        q_chunk=q_chunk)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32_TOL)
+    np.testing.assert_allclose(_np(gk), np.asarray(wk), **F32_TOL)
+    np.testing.assert_allclose(_np(gv), np.asarray(wv), **F32_TOL)
+
+
+def test_attention_long_prompt_must_fill_its_query_chunks():
+    """As in the reference, a prompt longer than ``q_chunk`` must be a
+    multiple of it."""
+    cfg = get_smoke_config("qwen2p5_3b")
+    _, npt = reference_params("qwen2p5_3b")
+    tp = tsc.from_numpy(jax.tree.map(lambda a: a[0],
+                                     npt["blocks"]["l0"]["attn"]))
+    with pytest.raises(RuntimeError):
+        tll.attention(tp, torch.zeros(1, 20, 64), cfg, local=False,
+                      q_chunk=16)
+
+
+@pytest.mark.parametrize("arch,dtype", [("qwen2p5_3b", np.float32),
+                                        ("gemma2_27b", np.float32),
+                                        ("qwen2p5_3b", None)])
+def test_forward_and_prefill_match_reference(arch, dtype):
+    cfg, jcfg = get_smoke_config(arch), jget_smoke(arch)
+    jp, npt = reference_params(arch, dtype)
+    tp = tsc.from_numpy(npt)
+    toks = np.random.default_rng(2).integers(1, cfg.vocab, (2, 32)) \
+        .astype(np.int32)
+    tol = LOGIT_TOL if dtype is not None else BF16_TOL
+    want = jtf.forward(jp, jcfg, tokens=jnp.asarray(toks), remat=False)
+    got = ttf.forward(tp, cfg, torch.from_numpy(toks))
+    np.testing.assert_allclose(_np(got), np.asarray(want), **tol)
+
+    last = np.asarray([29, 31], np.int32)
+    wl, wc = jtf.prefill(jp, jcfg, tokens=jnp.asarray(toks), page_size=8,
+                         remat=False, last_pos=jnp.asarray(last))
+    gl, gc = ttf.prefill(tp, cfg, torch.from_numpy(toks), 8,
+                         torch.from_numpy(last))
+    np.testing.assert_allclose(_np(gl), np.asarray(wl), **tol)
+    np.testing.assert_array_equal(gc.block_tables.numpy(),
+                                  np.asarray(wc.block_tables))
+    np.testing.assert_array_equal(gc.seq_lens.numpy(),
+                                  np.asarray(wc.seq_lens))
+    for name in wc.layers:
+        for kind in ("k_pages", "v_pages"):
+            np.testing.assert_allclose(_np(gc.layers[name][kind]),
+                                       np.asarray(wc.layers[name][kind],
+                                                  np.float32), **tol)
+
+
+@pytest.mark.parametrize("arch,dtype", [("qwen2p5_3b", np.float32),
+                                        ("gemma2_27b", np.float32),
+                                        ("gemma2_27b", None)])
+def test_decode_step_matches_reference(arch, dtype):
+    """Three decode steps over random pools: two live lanes (one crossing
+    a page edge, one past gemma2's window of 32) and one idle lane whose
+    table points at scratch page 0.  Logits of the live lanes and every
+    pool page but 0 (where the idle lanes collide) must agree."""
+    cfg, jcfg = get_smoke_config(arch), jget_smoke(arch)
+    jp, npt = reference_params(arch, dtype)
+    tp = tsc.from_numpy(npt)
+    rng = np.random.default_rng(3)
+    P, pps, NP = 8, 6, 20
+    pool_dt = np.float32 if dtype is not None else None
+    pools = {}
+    for i in range(len(cfg.pattern)):
+        pools[f"l{i}"] = {}
+        for kind in ("k_pages", "v_pages"):
+            a = rng.normal(size=(cfg.n_superblocks, NP, P, cfg.n_kv_heads,
+                                 cfg.head_dim)).astype(np.float32)
+            pools[f"l{i}"][kind] = a if pool_dt else \
+                np.asarray(jnp.asarray(a, jnp.bfloat16))
+    bt = np.zeros((3, pps), np.int32)
+    bt[0] = [5, 9, 2, 11, 0, 0]
+    bt[2] = [7, 3, 14, 19, 17, 1]
+    lens = np.asarray([15, 0, 39], np.int32)
+    jcache = jtf.DecodeCache(jax.tree.map(jnp.asarray, pools),
+                             jnp.asarray(bt), jnp.asarray(lens))
+    tcache = ttf.DecodeCache(tsc.from_numpy(pools), torch.from_numpy(bt),
+                             torch.from_numpy(lens))
+    tol = LOGIT_TOL if dtype is not None else BF16_TOL
+    for step in range(3):
+        toks = rng.integers(1, cfg.vocab, (3, 1)).astype(np.int32)
+        wl, jcache = jtf.decode_step(jp, jcfg, jcache, jnp.asarray(toks),
+                                     page_size=P, attn_backend="ref")
+        gl, tcache = ttf.decode_step(tp, cfg, tcache, torch.from_numpy(toks),
+                                     P)
+        np.testing.assert_allclose(_np(gl)[[0, 2]], np.asarray(wl)[[0, 2]],
+                                   **tol, err_msg=f"step {step}")
+        np.testing.assert_array_equal(tcache.seq_lens.numpy(),
+                                      np.asarray(jcache.seq_lens))
+    for name in pools:
+        for kind in ("k_pages", "v_pages"):
+            np.testing.assert_allclose(
+                _np(tcache.layers[name][kind])[:, 1:],
+                np.asarray(jcache.layers[name][kind], np.float32)[:, 1:],
+                **tol, err_msg=f"{name}/{kind}")
+
+
+def test_transformer_module_runs_the_functions():
+    cfg = get_smoke_config("gemma2_27b")
+    _, npt = reference_params("gemma2_27b")
+    tp = tsc.from_numpy(npt)
+    model = ttf.Transformer(cfg, tp)
+    assert set(model.state_dict()) == {
+        k.replace("/", ".") for k in _flat(tp, "params_tree")}
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab, (1, 16)).astype(np.int32))
+    assert torch.equal(model(toks), ttf.forward(tp, cfg, toks))

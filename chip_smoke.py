@@ -58,10 +58,15 @@ after:
    attention, must agree with that forward.
 
 Then each kernel is held against its plain PyTorch version on the card at
-the shapes its path gave it.  Each kernel's device time comes from a
-torch.profiler trace with the L2 cache flushed before every launch; the
-time per call through its Python wrapper and the plain version's time
-come from CUDA events.
+the shapes its path gave it; the paged-attention kernel also at the
+attention shapes of gemma2-27b (32 heads, 16 KV heads, soft-capping, a
+4,096-position window) and gemma3-12b (head dim 256, a 1,024-position
+window) on seeded synthetic pools, and its span plan is printed.  Each
+kernel's device time comes from a torch.profiler trace with the L2 cache
+flushed before every launch; the time per call through its Python
+wrapper and the plain version's time come from CUDA events.  The fused
+read's and paged attention's times before their redesign are printed
+beside this run's.
 
 Run from the repository root on a machine with a CUDA GPU:
 
@@ -129,6 +134,14 @@ TOKEN_GAP_TOL = 0.25            # a served token's logit below the row max
 # in an early layer's output grows through the later layers to the size
 # of any other rounding difference, so the bound is the same
 KERNEL_VS_PLAIN_TOL = 0.25
+# the kernels' device times before their redesign (profiler, L2 flushed,
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+BEFORE_MS = {"fused_get": 0.0354, "fused_scan": 0.0365,
+             "paged_attention": 0.2887}
+# synthetic shapes of two more carried configs for the paged-attention
+# kernel: (name, H, KVH, D, softcap, window) of gemma2-27b and gemma3-12b
+PAGED_SHAPES = (("gemma2-27b", 32, 16, 128, 50.0, 4096),
+                ("gemma3-12b", 16, 8, 256, 0.0, 1024))
 
 
 class SmokeFailure(RuntimeError):
@@ -231,6 +244,9 @@ def device_ms(fns: list, reps: int, match: str, flush: torch.Tensor,
                        f"for {n} launches, in each of {tries} traces")
 
 
+_FILL_NAMES = {}    # id(flush) -> the names of its fill kernels
+
+
 def device_all_ms(fns: list, reps: int, flush: torch.Tensor,
                   min_traced: float = 0.9, tries: int = 3) -> float:
     """Mean device time per call of EVERY device activity that ``fns``
@@ -239,15 +255,19 @@ def device_all_ms(fns: list, reps: int, flush: torch.Tensor,
     flush's own fill is told apart by its name and left out.  A trace
     holding fewer than ``min_traced`` of the fills is taken again; the mean
     is over the calls whose fill the trace holds."""
-    # the flush's fill kernels by name, filled as the run fills; a probe
-    # trace that the profiler dropped whole is taken again
+    # the flush's fill kernels by name, filled as the run fills, probed once
+    # a flush tensor (every trace is one more chance for the profiler to
+    # drop events); a probe trace that the profiler dropped whole is taken
+    # again
+    fill = _FILL_NAMES.get(id(flush), set())
     for _ in range(tries):
-        fill = {name for name, _ in device_events(
-            lambda: [flush.fill_(r) for r in range(8)])[0]}
         if fill:
             break
+        fill = {name for name, _ in device_events(
+            lambda: [flush.fill_(r) for r in range(8)])[0]}
     check(bool(fill), f"the profiler traced no flush fill, in each of "
           f"{tries} traces")
+    _FILL_NAMES[id(flush)] = fill
     for fn in fns:
         fn()
 
@@ -546,14 +566,20 @@ def single_shard_path(args, dev, flush):
                       f"(max abs err {e})")
                 err = max(err, e)
         # the bound: distinct image rows a batch reads, plus its inputs and
-        # outputs, over the memory rate
+        # outputs, over the memory rate; the rows the kernel marks and its
+        # dependent row reads a request must equal the plain walk's
         rows_read, loads = [], []
         for x in xs:
-            touched = torch.zeros(S + C, dtype=torch.int32, device=dev)
-            per_req = torch.zeros(BATCH, dtype=torch.int32, device=dev)
-            kfn(snap, *x, cfg=cfg, touched=touched, loads=per_req)
-            rows_read.append(int(touched.sum()))
-            loads.append(per_req)
+            marks = [(torch.zeros(S + C, dtype=torch.int32, device=dev),
+                      torch.zeros(BATCH, dtype=torch.int32, device=dev))
+                     for _ in range(2)]
+            kfn(snap, *x, cfg=cfg, touched=marks[0][0], loads=marks[0][1])
+            pfn(snap, *x, cfg=cfg, touched=marks[1][0], loads=marks[1][1])
+            check(all(torch.equal(a, b) for a, b in zip(*marks)),
+                  f"{name}: the rows read or the dependent row reads differ "
+                  f"from the plain walk's")
+            rows_read.append(int(marks[0][0].sum()))
+            loads.append(marks[0][1])
         loads = torch.cat(loads).float()
         kw, vw, m = cfg.key_words, cfg.val_words, cfg.max_scan_items
         io = (BATCH * (kw + 1) * 4 * (1 if name == "fused_get" else 2)
@@ -564,23 +590,36 @@ def single_shard_path(args, dev, flush):
         calls = [lambda x=x: kfn(snap, *x, cfg=cfg) for x in xs]
         plain = [lambda x=x: pfn(snap, *x, cfg=cfg) for x in xs]
         ms = device_ms(calls, 64, "fused_read_kernel", flush)
+        # the latency of one request's chain alone: batches of 2
+        pair_ms = device_ms([lambda x=x: kfn(snap, *(t[:2].contiguous()
+                                                    for t in x), cfg=cfg)
+                             for x in xs], 64, "fused_read_kernel", flush)
         wrapper_ms = cuda_ms(calls, 200)
         plain_ms = cuda_ms(plain, 16)
+        # the latency bound: the longest request's chain of dependent row
+        # reads, each one round trip to device memory
+        chain = int(loads.max())
         print(f"{name}: equals its plain version exactly (tolerance 0) at "
-              f"lb_fraction 0.0 and 0.25; kernel {ms:.4f} ms device time per "
-              f"batch of {BATCH} (L2 flushed), {wrapper_ms:.4f} ms per call "
+              f"lb_fraction 0.0 and 0.25, rows read and dependent row reads "
+              f"included; kernel {ms:.4f} ms device time per "
+              f"batch of {BATCH} (L2 flushed; before the redesign "
+              f"{BEFORE_MS[name]:.4f} ms), {wrapper_ms:.4f} ms per call "
               f"through the wrapper back to back (plain {plain_ms:.4f} ms), "
-              f"bound {bound_ms:.6f} ms from "
+              f"byte bound {bound_ms:.6f} ms from "
               f"{statistics.mean(rows_read):.1f} distinct rows per batch; "
               f"dependent row reads per request mean "
-              f"{float(loads.mean()):.3f}, max {int(loads.max())}")
+              f"{float(loads.mean()):.3f}, max {chain} (latency bound "
+              f"{chain} round trips): {ms / max(chain, 1) * 1e3:.3f} us of "
+              f"kernel time per dependent row read of the longest chain; a "
+              f"batch of 2 takes {pair_ms:.4f} ms")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_read.cu",
             "replaces": line, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None})
+            "library_ms": None, "pair_ms": pair_ms,
+            "row_reads_mean": float(loads.mean()), "row_reads_max": chain})
 
     # the scatter at the delta's shape: distinct dirty rows padded with
     # repeats of the last one, as the store pads them
@@ -1978,12 +2017,26 @@ def serving_path(args, dev, flush):
         print(f"paged_attention vs its plain version, {dtype} pools: max abs "
               f"err {e:.3g} (tolerance rtol {tol['rtol']:.3g}, atol "
               f"{tol['atol']:.3g})")
+    plan = paged_attention.span_plan(slots, H, KVH, eng.pps, P, D, kp.dtype)
+    print(f"paged_attention span plan at the engine's shapes: "
+          f"{plan._asdict()} (grid {slots} x {KVH} x {plan.n_spans} split "
+          f"blocks of {paged_attention.THREADS} threads, then {slots * H} "
+          f"combining blocks)")
     call = [lambda: paged_attention.paged_attention(q, kp, vp, bt, sl,
                                                     scale=scale)]
-    ms = device_ms(call, 64, "paged_attention_kernel", flush)
+    # a call launches the split kernel and the combining kernel; both
+    # names hold "paged_attention_kernel"
+    ms = device_ms(call, 64, "paged_attention_kernel", flush, per_call=2)
+    split_ms = device_ms(call, 64, "paged_attention_kernel_split", flush)
     wrapper_ms = cuda_ms(call, 200)
     plain_ms = cuda_ms([lambda: ref.paged_attention_ref(q, kp, vp, bt, sl,
                                                         scale=scale)], 16)
+    # the latency of one live block's chain and the combine: one sequence
+    # of one span's positions
+    one = torch.tensor([plan.span], dtype=torch.int32, device=dev)
+    one_ms = device_ms([lambda: paged_attention.paged_attention(
+        q[:1].contiguous(), kp, vp, bt[:1].contiguous(), one, scale=scale)],
+        64, "paged_attention_kernel", flush, per_call=2)
     # partial yardstick: SDPA over the K/V already gathered to dense
     # [B, KVH, PPS * P, D] (no page gather), the window as a mask
     kd = kp[bt.long()].reshape(slots, -1, KVH, D).transpose(1, 2) \
@@ -2010,8 +2063,11 @@ def serving_path(args, dev, flush):
     bound_ms = max(bytes_ms, ops_ms)
     print(f"paged_attention at B = {slots}, H = {H}, KVH = {KVH}, D = {D}, "
           f"P = {P}, PPS = {eng.pps}, bf16, live lengths "
-          f"{[n for n, _ in live]}: kernel {ms:.4f} ms device time (L2 "
-          f"flushed), {wrapper_ms:.4f} ms per call through the wrapper back "
+          f"{[n for n, _ in live]}: kernel {ms:.4f} ms device time, split "
+          f"{split_ms:.4f} + combine {ms - split_ms:.4f} (L2 flushed; "
+          f"before the redesign {BEFORE_MS['paged_attention']:.4f} ms; one "
+          f"sequence of {plan.span} positions {one_ms:.4f} ms), "
+          f"{wrapper_ms:.4f} ms per call through the wrapper back "
           f"to back (plain {plain_ms:.4f} ms), bound {bound_ms:.6f} ms "
           f"({io} B over {HBM_BYTES_PER_S:.3g} B/s; {ops_} flops over "
           f"{BF16_FLOPS:.3g}/s take {ops_ms:.6f} ms); partial yardstick "
@@ -2026,12 +2082,74 @@ def serving_path(args, dev, flush):
              "bound_ms": bound_ms,
              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
              "library_ms": library_ms, "B": slots,
-             "live_positions": live_pos,
+             "live_positions": live_pos, "split_ms": split_ms,
+             "one_span_ms": one_ms,
              "decode_step_ms": statistics.median(decode_ms),
              "tokens_per_s": eng.stats["tokens"] / run_s}
-    del eng, kd, vd
+    del eng, kd, vd, kp, vp
     torch.cuda.empty_cache()
+    entry["shapes"] = [paged_shape_check(args, dev, flush, *shape)
+                       for shape in PAGED_SHAPES]
+    entry["max_abs_err"] = max([entry["max_abs_err"]]
+                               + [x["max_abs_err"] for x in entry["shapes"]])
     return entry, launches
+
+
+def paged_shape_check(args, dev, flush, name, H, KVH, D, softcap, window):
+    """The paged-attention kernel against its plain version on seeded
+    synthetic pools at another carried config's attention shape (8
+    sequences of 1,024-8,192 positions in pages of 256, a sliding window
+    of ``window`` positions, ``softcap``), in bf16 and in f32 with the
+    serving check's tolerances; then its device time beside its bound."""
+    from repro_torch.kernels import paged_attention, ref
+    B, P, PPS = SERVING_SLOTS, SERVING_PAGE, SERVING_MAX_SEQ // SERVING_PAGE
+    rng = np.random.default_rng(args.seed + D + H)
+    lens = rng.integers(1024, PPS * P + 1, B)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    start = torch.tensor(np.maximum(lens - window, 0), dtype=torch.int32,
+                         device=dev)
+    bt = torch.tensor(1 + rng.permutation(B * PPS).reshape(B, PPS),
+                      dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + D)
+    kp, vp = (torch.randn(B * PPS + 1, P, KVH, D, generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(scale=D ** -0.5, softcap=softcap)
+    err = 0.0
+    for dtype, tol in ((torch.bfloat16, dict(rtol=2 ** -7, atol=1e-6)),
+                       (torch.float32, dict(rtol=1e-5, atol=1e-5))):
+        a = (q.to(dtype), kp.to(dtype), vp.to(dtype), bt, sl, start)
+        got = paged_attention.paged_attention(*a, **kw)
+        want = ref.paged_attention_ref(*a, **kw)
+        try:
+            torch.testing.assert_close(got, want, **tol)
+        except AssertionError as exc:
+            raise SmokeFailure(f"paged_attention at {name}'s shape ({dtype}) "
+                               f"vs plain: {exc}")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        del a, got, want
+    plan = paged_attention.span_plan(B, H, KVH, PPS, P, D, kp.dtype)
+    ms = device_ms([lambda: paged_attention.paged_attention(
+        q, kp, vp, bt, sl, start, **kw)], 64, "paged_attention_kernel",
+        flush, per_call=2)
+    hi = np.minimum(lens, PPS * P)
+    lo = np.maximum(lens - window, 0)
+    vis = int((hi - lo).sum())
+    pages = int((-(-hi // P) - lo // P).sum())
+    io = vis * KVH * D * 2 * kp.element_size() \
+        + 2 * q.numel() * q.element_size() + 4 * (pages + 2 * B)
+    ops_ = 4 * H * D * vis
+    bound_ms = max(io / HBM_BYTES_PER_S, ops_ / BF16_FLOPS) * 1e3
+    print(f"paged_attention at {name}'s shape (B = {B}, H = {H}, KVH = "
+          f"{KVH}, D = {D}, softcap {softcap}, window {window}, lengths "
+          f"{lens.tolist()}): equals its plain version in bf16 and f32 "
+          f"(max abs err {err:.3g}); plan {plan._asdict()}; kernel "
+          f"{ms:.4f} ms device time (L2 flushed), bound {bound_ms:.6f} ms "
+          f"({io} B)")
+    del kp, vp
+    torch.cuda.empty_cache()
+    return {"name": name, "ms": ms, "bound_ms": bound_ms,
+            "max_abs_err": err}
 
 
 if __name__ == "__main__":

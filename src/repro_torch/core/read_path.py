@@ -267,14 +267,45 @@ def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
 # interior-node search engine (KSU)
 # --------------------------------------------------------------------------
 
+class RowTrace:
+    """The rows a batch's walk reads ([rows] int32, 1 where read) and each
+    request's count of dependent row reads ([B] int32), counted as the
+    fused kernel counts its ``touched`` and ``loads``: a cached level is
+    one read; a heap level, and each sibling leaf, is one for the
+    page-table lookup and its row, plus one for each old-version hop.
+    Only the lanes in the mask a step passes are counted."""
+
+    def __init__(self, rows: int, B: int, device):
+        self.touched = torch.zeros(rows, dtype=torch.int32, device=device)
+        self.loads = torch.zeros(B, dtype=torch.int32, device=device)
+
+    def read(self, phys: torch.Tensor, mask: torch.Tensor) -> None:
+        """Mark row ``phys`` of each lane in ``mask`` (a negative row
+        wraps once, then clamps, as the kernel indexes)."""
+        n = self.touched.shape[0]
+        r = torch.where(phys < 0, phys + n, phys).clamp(0, n - 1)
+        self.touched[r[mask].long()] = 1
+
+    def count(self, mask: torch.Tensor) -> None:
+        """One more dependent row read for each lane in ``mask``."""
+        self.loads += mask.to(torch.int32)
+
+
 def _resolve_version(snap: SnapshotFields, phys: torch.Tensor, rv: int,
-                     cfg: HoneycombConfig) -> torch.Tensor:
+                     cfg: HoneycombConfig, trace: RowTrace | None = None,
+                     live: torch.Tensor | None = None) -> torch.Tensor:
     """Follow old-version pointers until node version <= rv (Section 3.2).
-    Bounded walk; wait-free (no locks, no retries)."""
+    Bounded walk; wait-free (no locks, no retries).  ``trace`` records
+    the rows the lanes in ``live`` read and their hops."""
     for _ in range(cfg.max_version_chain):
         old = snap.oldptr[phys]
         too_new = (snap.version[phys] > rv) & (old != NULL)
+        if trace is not None:
+            trace.read(phys, live)
+            trace.count(live & too_new)
         phys = torch.where(too_new, old, phys)
+    if trace is not None:
+        trace.read(phys, live)
     return phys
 
 
@@ -364,13 +395,15 @@ def lb_routed_lanes(lane: torch.Tensor, lb_fraction: float) -> torch.Tensor:
 
 def descend_fused(snap: TreeSnapshot, view: SnapshotFields,
                   key: torch.Tensor, klen: torch.Tensor,
-                  cfg: HoneycombConfig, *, lb_fraction: float = 0.0):
+                  cfg: HoneycombConfig, *, lb_fraction: float = 0.0,
+                  trace: RowTrace | None = None):
     """Cache-tiered descend (the fused path's plain version): a level whose
     LID is in the cache tier resolves straight to its cache row (combined
     index S + slot — no pagetable lookup, no MVCC walk), everything below
     the cached frontier falls through to the heap path, and an
     ``lb_fraction`` slice of cache-HIT lanes takes the heap pipe anyway.
-    ``view`` must be ``fused_view(snap, cfg)``.
+    ``view`` must be ``fused_view(snap, cfg)``; ``trace``, when given,
+    records the rows each level reads.
 
     Returns (leaf row in the combined view, meters i32[3] =
     [vmem_hits, heap_gathers, lb_routed] counted over traversed levels)."""
@@ -389,10 +422,14 @@ def descend_fused(snap: TreeSnapshot, view: SnapshotFields,
         hit = eq.any(dim=1) & (lid != NULL)
         slot = eq.to(torch.uint8).argmax(dim=1).to(torch.int32)
         use_cache = hit & ~routed
-        heap_phys = _resolve_version(view, view.pagetable[lid], rv, cfg)
+        live = ~done
+        heap_phys = _resolve_version(view, view.pagetable[lid], rv, cfg,
+                                     trace, live & ~use_cache)
+        if trace is not None:
+            trace.read(S + slot, live & use_cache)
+            trace.count(live)
         cur = torch.where(use_cache, S + slot, heap_phys)
         cur = torch.where(done, phys, cur)
-        live = ~done
         meters += torch.stack([(use_cache & live).sum(),
                                (~use_cache & live).sum(),
                                (hit & routed & live).sum()])
@@ -524,10 +561,12 @@ def batched_scan(snap, lo: torch.Tensor, lolen: torch.Tensor,
 def scan_from_leaf(snap: SnapshotFields, leaf0: torch.Tensor,
                    lo: torch.Tensor, lolen: torch.Tensor,
                    hi: torch.Tensor, hilen: torch.Tensor,
-                   cfg: HoneycombConfig) -> ScanResult:
+                   cfg: HoneycombConfig,
+                   trace: RowTrace | None = None) -> ScanResult:
     """The scan engine proper, starting from pre-descended leaf rows —
     shared between the reference path (heap view) and the fused oracle
-    (combined cache+heap view), so the two paths cannot drift."""
+    (combined cache+heap view), so the two paths cannot drift.
+    ``trace``, when given, records the sibling leaves each lane moves to."""
     c = cfg
     B = lo.shape[0]
     M = c.max_scan_items
@@ -561,7 +600,9 @@ def scan_from_leaf(snap: SnapshotFields, leaf0: torch.Tensor,
         nxt = snap.lsib[phys]
         can_move = ~have & (nxt != NULL)
         nxt_phys = _resolve_version(snap, snap.pagetable[nxt.clamp(min=0)],
-                                    rv, c)
+                                    rv, c, trace, can_move)
+        if trace is not None:
+            trace.count(can_move)
         phys = torch.where(can_move, nxt_phys, phys)
 
     # one spare result slot (index M) absorbs the writes of lanes that do
@@ -604,7 +645,9 @@ def scan_from_leaf(snap: SnapshotFields, leaf0: torch.Tensor,
         nxt = snap.rsib[phys]
         done = done | past_hi | (nxt == NULL) | trunc
         nxt_phys = _resolve_version(snap, snap.pagetable[nxt.clamp(min=0)],
-                                    rv, c)
+                                    rv, c, trace, ~done)
+        if trace is not None:
+            trace.count(~done)
         phys = torch.where(done, phys, nxt_phys)
     trunc = trunc | ~done
     return ScanResult(count, out_keys[:, :M].contiguous(),

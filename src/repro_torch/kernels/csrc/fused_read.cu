@@ -8,31 +8,52 @@
 // over right siblings with the order-hint log merge and MVCC version
 // resolution, and for GET the equality pass over the SCAN(K, K) result.
 //
-// Design.  One warp serves one request; a block holds WARPS requests and
-// no block-wide barrier is used.  Per level of the descend the warp probes
-// the C cache LIDs lane-parallel with a ballot; a hit that the load
-// balancer does not route (request index % 16 >= routed_k) reads its row
-// from the cache array, anything else takes the pagetable lookup and the
-// bounded MVCC walk and reads the heap row.  The shortcut and segment
-// floors are lane-parallel key compares reduced with shuffles.  A leaf is
-// staged whole in the warp's shared memory (IW words); the warp derives the
-// log entries' shift-register positions, the stable merge order of the
-// sorted and log blocks (each used slot counts the used slots ranked
-// before it), the runs of equal keys and each run's newest visible
+// Design.  One warp serves one request; a block holds WARPS = 2 requests,
+// so a batch of 256 spreads over 128 blocks (one an SM) where 4 warps a
+// block used 64.  Each request is a chain of dependent reads, and the
+// design cuts the round trips to device memory along that chain:
+//   - the C cache LIDs are copied once a block into shared memory (one
+//     4-byte cp.async a word, all in flight) and probed there, a lane per
+//     LID and a min-reduce: a miss, as at the never-cached leaf level,
+//     costs no global trip;
+//   - the root's cache row (slot 0 of the tier, fetched in the same burst
+//     as the LIDs) is copied once a block into shared memory; every
+//     request not routed to the heap pipe starts from it;
+//   - every other row a request reads (interior rows, each MVCC hop, the
+//     leaves) is staged whole into the warp's buffer R in ONE burst of
+//     4-byte cp.async (IW = 1273 words make a 5,092-byte row stride, so
+//     16-byte copies would be aligned for every fourth row only), then
+//     read from shared memory: the version check, the shortcut and segment
+//     floors (lane-parallel key compares reduced with shuffles) and the
+//     leaf resolve.  The row the descent ends on is the leaf, so it is
+//     already staged;
+//   - resolve_leaf places each used slot in O(L): a sorted item t goes to
+//     t + #(log entries ranked below it) (the sorted ranks t * (L + 1) + L
+//     rise strictly), a log entry to #(sorted items ranked <= it) + #(log
+//     entries ranked below it, or equal with a lower index), the former by
+//     division; ranks are int32 and may wrap, as in the plain version.
+// A heap level costs two round trips (the page-table word, then the row),
+// a cached level one, the root none beyond the block's first burst.  Per
+// leaf the warp derives the log entries' shift-register positions, the
+// merge order, the runs of equal keys and each run's newest visible
 // version, then emits with ballot prefix counts into result slots held in
-// shared memory.
+// shared memory.  What bounds a request after these cuts is the chain of
+// its warp's own dependent steps (probes, key compares, shuffles, the
+// leaf resolve), a few microseconds even with every row in L2.
 //
 // The TPU kernel pinned the whole cache tier in VMEM.  256 rows x 5092 B is
 // about 1.3 MB, far over the 227 KB of shared memory a block may use, so
-// here cache rows stay in device memory and are served through L2; cache
-// membership, not memory placement, decides the meters.
+// here the cache rows below the root stay in device memory and are served
+// through L2; cache membership, not memory placement, decides the meters.
 //
 // Bound.  Each request is a chain of dependent row reads (root to leaf,
-// then sibling leaves), so latency, not bandwidth, bounds this kernel: a
-// request issues about max(height, 1) + scanned-leaves row reads in
-// sequence.  The byte bound counts the distinct rows a batch reads; pass
-// `touched` to have the kernel mark them and `loads` for the per-request
-// count of dependent row reads.
+// then sibling leaves), so latency, not bandwidth, bounds this kernel: the
+// latency bound is the longest request's dependent row reads (`loads`,
+// about max(height, 1) + scanned leaves + MVCC hops) times one round trip
+// to device memory, beside the byte bound, which counts the distinct rows
+// a batch reads (`touched`).  Pass `touched` to have the kernel mark the
+// rows it reads and `loads` for the per-request count of dependent row
+// reads.
 //
 // Out-of-range indices wrap once as Python indexing does and then clamp,
 // so a corrupt image can never make the kernel read outside its inputs.
@@ -48,7 +69,8 @@ constexpr int LEAF = 1;
 constexpr int LOG_DELETE = 2;
 constexpr int I32_MIN = -2147483647 - 1;
 constexpr int I32_MAX = 2147483647;
-constexpr int WARPS = 4;  // requests per block, one warp each
+constexpr int WARPS = 2;  // requests per block, one warp each
+constexpr int MAX_SMEM = 232448;  // 227 KB, the most a block may use
 
 // Geometry and packed-image word offsets.  The wrapper
 // (repro_torch/kernels/fused_read.py:_geometry) fills it in this order.
@@ -88,7 +110,7 @@ struct Args {
 // Shared-memory words one warp needs.
 __host__ __device__ inline int warp_words(const Geo& g) {
   return 2 * g.KW                     // query keys lo, hi
-         + g.IW                       // staged leaf row
+         + g.IW                       // staged row: interior, hop or leaf
          + 4 * (g.N + g.L)            // rank/live, merged, vmask, flags
          + g.M * (g.KW + g.VW + 2)    // result slots
          + g.KW + g.VW;               // floor item
@@ -114,33 +136,46 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-// Row r of the combined view: heap rows [0, S), cache rows [S, S + C).
-__device__ __forceinline__ const int* row_ptr(const Args& a, const Geo& g,
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Row r of the combined view: heap rows [0, S), cache rows [S, S + C); r
+// must be wrapped already.
+__device__ __forceinline__ const int* row_src(const Args& a, const Geo& g,
                                               int r) {
-  r = wrap(r, a.S + a.C);
-  if (a.touched != nullptr && (threadIdx.x & 31) == 0) a.touched[r] = 1;
   return r < a.S ? a.image + (size_t)r * g.IW
                  : a.cimg + (size_t)(r - a.S) * g.IW;
 }
 
-// Old-version walk (paper Section 3.2): at most max_chain hops while the
-// node is newer than the read version and has an older version.
-__device__ int resolve_version(const Args& a, const Geo& g, int p,
-                               int& loads) {
-  for (int k = 0; k < g.max_chain; ++k) {
-    const int* row = row_ptr(a, g, p);
-    const int old = row[g.oldptr];
-    if (!(row[g.version] > a.rv && old != NULL_ID)) break;
-    p = old;
-    ++loads;
-  }
-  return p;
+// Copy row `src` (IW words) into shared memory with every word's copy in
+// flight at once; the caller's warp sees it after the trailing
+// __syncwarp.  The row stride is 5,092 bytes at the default geometry, so
+// only 4-byte copies are aligned for every row.
+__device__ __forceinline__ void stage_burst(int* dst, const int* src, int n,
+                                            int first, int step) {
+  for (int w = first; w < n; w += step) cp_async4(dst + w, src + w);
+  cp_async_wait_all();
 }
 
-__device__ __forceinline__ int heap_row(const Args& a, const Geo& g, int lid,
-                                        int& loads) {
-  ++loads;
-  return resolve_version(a, g, a.pt[wrap(lid, a.n_lids)], loads);
+// Lowest slot whose cache LID equals `lid`, else -1: a lane per LID, then
+// a min-reduce over the warp.
+__device__ __forceinline__ int probe(const int* clids, int C, int lid,
+                                     int lane) {
+  int best = I32_MAX;
+  for (int i = lane; i < C; i += 32)
+    if (clids[i] == lid) {
+      best = i;
+      break;
+    }
+  best = __reduce_min_sync(FULL, best);
+  return best == I32_MAX ? -1 : best;
 }
 
 // Child LID an interior node routes the query to: shortcut floor, then the
@@ -197,6 +232,7 @@ __device__ int resolve_leaf(const Geo& g, const int* R, int rv, int* live,
   const int nit = max(min(R[g.nitems], N), 0);
   const int nlg = max(min(R[g.nlog], L), 0);
   int* rank = live;  // ranks first; live flags overwrite them at the end
+  __syncwarp();      // every lane is done with the last leaf's arrays
 
   // merge ranks: sorted item i at i*(L+1)+L, log entry j just before the
   // sorted item its back pointer names, ordered by its shift-register
@@ -209,20 +245,32 @@ __device__ int resolve_leaf(const Geo& g, const int* R, int rv, int* live,
       const int j = t - N;
       int pos = R[g.log_hint + j];
       for (int k = j + 1; k < nlg; ++k) pos += pos >= R[g.log_hint + k];
-      r = R[g.log_backptr + j] * (L + 1) + pos;
+      r = (int)((unsigned)R[g.log_backptr + j] * (unsigned)(L + 1) +
+                (unsigned)pos);                 // wraps as int32 does
     }
     rank[t] = r;
   }
   __syncwarp();
   // stable argsort of the used slots: a slot's merged position is the
-  // number of used slots ranked before it (ties broken by slot index)
+  // number of used slots ranked before it (ties broken by slot index).
+  // The sorted items' ranks t * (L + 1) + L rise strictly, so a sorted
+  // item has exactly t of them before it, and a log entry of rank r has
+  // those with t * (L + 1) + L <= r (a lower slot index wins the tie);
+  // only the log block is counted one by one.
   for (int t = lane; t < T; t += 32) {
     if (t < N ? t >= nit : t - N >= nlg) continue;
     const int r = rank[t];
-    int pos = 0;
-    for (int u = 0; u < nit; ++u) pos += rank[u] < r || (rank[u] == r && u < t);
-    for (int u = N; u < N + nlg; ++u)
-      pos += rank[u] < r || (rank[u] == r && u < t);
+    int pos;
+    if (t < N) {
+      pos = t;
+      for (int u = N; u < N + nlg; ++u) pos += rank[u] < r;
+    } else {
+      const long long below =
+          r < L ? 0 : ((long long)r - L) / (L + 1) + 1;
+      pos = (int)(below < nit ? below : nit);
+      for (int u = N; u < N + nlg; ++u)
+        pos += rank[u] < r || (rank[u] == r && u < t);
+    }
     merged[pos] = t;
   }
   __syncwarp();
@@ -239,8 +287,11 @@ __device__ int resolve_leaf(const Geo& g, const int* R, int rv, int* live,
     bool start = p == 0;
     if (!start) {
       const int tp = merged[p - 1];
+      // the stable argsort puts the unused sorted slots (rank I32_MAX)
+      // before a log entry whose rank wrapped to I32_MAX, and they end a run
       start = key_cmp(item_key(g, R, t), item_klen(g, R, t),
-                      item_key(g, R, tp), item_klen(g, R, tp), g.KW) != 0;
+                      item_key(g, R, tp), item_klen(g, R, tp), g.KW) != 0 ||
+              (nit < N && rank[t] == I32_MAX && rank[tp] != I32_MAX);
     }
     flags[p] = f | (start ? 1 : 0);
     vmask[p] = (f & 2) ? ver : I32_MIN;
@@ -264,11 +315,12 @@ template <bool GET>
 __global__ void __launch_bounds__(32 * WARPS)
 fused_read_kernel(const Args a, const Geo g) {
   extern __shared__ int smem[];
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (b >= a.B) return;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int b = blockIdx.x * WARPS + wid;
   const int T = g.N + g.L, KW = g.KW, VW = g.VW, M = g.M;
-  int* qlo = smem + (threadIdx.x >> 5) * warp_words(g);
+  int* clids = smem;                  // [C] cache LIDs
+  int* RT = clids + a.C;              // [IW] the root's cache row
+  int* qlo = RT + g.IW + wid * warp_words(g);
   int* qhi = qlo + KW;
   int* R = qhi + KW;
   int* live = R + g.IW;
@@ -282,56 +334,112 @@ fused_read_kernel(const Args a, const Geo g) {
   int* fkey = ovlens + M;
   int* fval = fkey + KW;
 
-  for (int w = lane; w < KW; w += 32) {
-    qlo[w] = a.lo[(size_t)b * KW + w];
-    qhi[w] = a.hi[(size_t)b * KW + w];
+  // ---- once a block: the cache LIDs, then the root's cache row; the
+  // warp's query keys ride in the first burst -----------------------------
+  const bool active = b < a.B;
+  int lolen = 0, hilen = 0;
+  if (active) {
+    for (int w = lane; w < KW; w += 32) {
+      cp_async4(qlo + w, a.lo + (size_t)b * KW + w);
+      cp_async4(qhi + w, a.hi + (size_t)b * KW + w);
+    }
+    lolen = a.lolen[b];
+    hilen = a.hilen[b];
   }
+  // the cache tier lists the root first (core/cache.py:frontier_lids), so
+  // slot 0's row rides in the same burst; the probe confirms it
+  if (a.C > 0)
+    for (int w = threadIdx.x; w < g.IW; w += blockDim.x)
+      cp_async4(RT + w, a.cimg + w);
+  stage_burst(clids, a.clids, a.C, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int root_slot = a.root == NULL_ID ? -1
+                                          : probe(clids, a.C, a.root, lane);
+  if (root_slot > 0) {           // the same in every warp of the block
+    stage_burst(RT, a.cimg + (size_t)root_slot * g.IW, g.IW, threadIdx.x,
+                blockDim.x);
+    __syncthreads();
+  }
+  if (!active) return;                // a whole warp: no ballot is cut
+
   for (int w = lane; w < M * KW; w += 32) okeys[w] = 0;
   for (int w = lane; w < M * VW; w += 32) ovals[w] = 0;
   for (int w = lane; w < M; w += 32) oklens[w] = ovlens[w] = 0;
-  const int lolen = a.lolen[b], hilen = a.hilen[b];
   __syncwarp();
   int loads = 0;
+
+  // R holds row `staged` (a wrapped index); resolve_leaf last ran on row
+  // `resolved`, whose merge U spans
+  int staged = I32_MIN, resolved = I32_MIN, U = 0;
+  auto mark = [&](int r) {
+    if (a.touched != nullptr && lane == 0) a.touched[r] = 1;
+  };
+  // read row p: mark it, and stage it into R in one burst unless R holds it
+  auto stage = [&](int p) -> const int* {
+    const int r = wrap(p, a.S + a.C);
+    mark(r);
+    if (r != staged) {
+      __syncwarp();                   // every lane is done reading R
+      stage_burst(R, row_src(a, g, r), g.IW, lane, 32);
+      __syncwarp();
+      staged = r;
+      resolved = I32_MIN;
+    }
+    return R;
+  };
+  // page-table lookup, then the old-version walk (paper Section 3.2): at
+  // most max_chain hops while the node is newer than the read version and
+  // has an older version; each row it reads is staged, so the last one
+  // checked is in R when the walk ends early
+  auto heap_row = [&](int lid) -> int {
+    ++loads;
+    int p = a.pt[wrap(lid, a.n_lids)];
+    for (int k = 0; k < g.max_chain; ++k) {
+      const int* row = stage(p);
+      const int old = row[g.oldptr];
+      if (!(row[g.version] > a.rv && old != NULL_ID)) break;
+      p = old;
+      ++loads;
+    }
+    return p;
+  };
 
   // ---- descend: cache tier first, heap fall-through ----------------------
   const bool routed = (b % 16) < a.routed_k;
   int lid = a.root, leaf = 0, vh = 0, hg = 0, lr = 0;
   for (int level = 0; level < g.max_height; ++level) {
-    int slot = -1;
-    for (int base = 0; base < a.C; base += 32) {
-      const int i = base + lane;
-      const unsigned m = __ballot_sync(FULL, i < a.C && a.clids[i] == lid);
-      if (m) {
-        slot = base + __ffs(m) - 1;
-        break;
-      }
-    }
+    const int slot = probe(clids, a.C, lid, lane);
     const bool hit = slot >= 0 && lid != NULL_ID;
     const bool use_cache = hit && !routed;
+    const int* row;
     if (use_cache) {
       leaf = a.S + slot;
       ++loads;
+      if (slot == root_slot) {        // the block's copy
+        mark(wrap(leaf, a.S + a.C));
+        row = RT;
+      } else {
+        row = stage(leaf);
+      }
     } else {
-      leaf = heap_row(a, g, lid, loads);
+      leaf = heap_row(lid);
+      row = stage(leaf);
     }
     vh += use_cache;
     hg += !use_cache;
     lr += hit && routed;
-    const int* row = row_ptr(a, g, leaf);
     if (row[g.ntype] == LEAF) break;
     lid = route_child(g, row, qlo, lolen, lane);
   }
 
-  // ---- leaf staging ------------------------------------------------------
-  int staged = I32_MIN, U = 0;
-  auto stage = [&](int p) {
-    if (p == staged) return;
-    const int* src = row_ptr(a, g, p);
-    __syncwarp();
-    for (int w = lane; w < g.IW; w += 32) R[w] = src[w];
-    __syncwarp();
-    U = resolve_leaf(g, R, a.rv, live, merged, vmask, flags, lane);
-    staged = p;
+  // ---- leaf staging: the descent left the leaf in R unless it was the
+  // root's block copy ------------------------------------------------------
+  auto stage_leaf = [&](int p) {
+    stage(p);
+    if (staged != resolved) {
+      U = resolve_leaf(g, R, a.rv, live, merged, vmask, flags, lane);
+      resolved = staged;
+    }
   };
 
   // ---- floor pre-pass: walk left until a visible key <= lo ---------------
@@ -339,7 +447,7 @@ fused_read_kernel(const Args a, const Geo g) {
   int fklen = 0, fvlen = 0;
   int p = leaf;
   for (int step = 0; step < g.max_scan_leaves; ++step) {
-    stage(p);
+    stage_leaf(p);
     int best = -1;
     for (int q = lane; q < U; q += 32) {
       const int t = merged[q];
@@ -359,7 +467,7 @@ fused_read_kernel(const Args a, const Geo g) {
     }
     const int nxt = R[g.lsib];
     if (nxt == NULL_ID) break;
-    p = heap_row(a, g, max(nxt, 0), loads);
+    p = heap_row(max(nxt, 0));
   }
   __syncwarp();
 
@@ -379,7 +487,7 @@ fused_read_kernel(const Args a, const Geo g) {
   bool trunc = false, done = false;
   p = leaf;
   for (int step = 0; step < g.max_scan_leaves; ++step) {
-    stage(p);
+    stage_leaf(p);
     int emitted = 0;
     bool past = false;
     for (int base = 0; base < U; base += 32) {
@@ -413,7 +521,7 @@ fused_read_kernel(const Args a, const Geo g) {
     const int nxt = R[g.rsib];
     done = past || nxt == NULL_ID || trunc;
     if (done) break;
-    p = heap_row(a, g, max(nxt, 0), loads);
+    p = heap_row(max(nxt, 0));
   }
   trunc = trunc || !done;
   __syncwarp();
@@ -512,14 +620,22 @@ extern "C" int fused_read_launch(
   a.meters = (int*)meters;
   a.touched = (int*)touched;
   a.loads = (int*)loads;
-  const size_t smem = (size_t)WARPS * warp_words(g) * sizeof(int);
+  const size_t smem =
+      ((size_t)C + g.IW + (size_t)WARPS * warp_words(g)) * sizeof(int);
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  // raise each kernel's dynamic shared-memory limit once, to the most a
+  // block may use
+  static const cudaError_t raised[2] = {
+      cudaFuncSetAttribute(fused_read_kernel<false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           MAX_SMEM),
+      cudaFuncSetAttribute(fused_read_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           MAX_SMEM)};
+  if (raised[get_mode ? 1 : 0] != cudaSuccess)
+    return (int)raised[get_mode ? 1 : 0];
   void (*kern)(const Args, const Geo) =
       get_mode ? fused_read_kernel<true> : fused_read_kernel<false>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   kern<<<(B + WARPS - 1) / WARPS, 32 * WARPS, smem, (cudaStream_t)stream>>>(
       a, g);
   return (int)cudaGetLastError();

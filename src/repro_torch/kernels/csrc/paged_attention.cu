@@ -8,48 +8,77 @@
 //         k_j the row of KV head kvh at slot j % P of page
 //         block_tables[b][j / P];
 //   out_h = sum_j softmax(s)_j v_j, in f32, cast to q's type;
-//   an empty window gives zeros (l = 0, acc = 0, out = acc / max(l, 1e-30)).
+//   an empty window gives zeros.
 //
 // Replaces the Pallas kernel repro/kernels/paged_attention.py:
 // paged_attention.  The TPU kernel walks the pages as a sequential grid
-// dimension, carries the online-softmax state in VMEM scratch from one page
-// to the next and lets the DMA engine fetch each page through the
-// scalar-prefetched block table.  Here one block serves one (sequence, KV
-// head) and a loop inside the block walks the visible positions in tiles
-// of T positions (256 for bf16 pools at D <= 128), so the state stays on
-// the SM:
-//   0. the tile's K and V rows are copied into shared memory with
-//      cp.async, every 16-byte piece of the tile in flight at once (the
-//      tile is 128 KB at D = 128 in bf16), each row padded by 16 bytes so
-//      that neighbouring threads' rows fall in different banks;
-//   1. each thread takes one position of the tile and scores its K row
-//      against all G query heads of the KV head, whose q rows sit in
-//      shared memory as f32 (the G heads share every K element loaded);
+// dimension and carries the online-softmax state in VMEM scratch from one
+// page to the next.  Blocks on this card run in parallel and in no order,
+// so the positions are split (flash-decoding) and the state is combined by
+// a second pass:
+//
+// paged_attention_kernel_split, grid (B, KVH, n_spans), 256 threads.  Block
+// (b, kvh, s) takes the visible positions of span s, [s * span, (s + 1) *
+// span), for the G query heads of KV head kvh (they share every K/V byte
+// the block reads).  A span outside the window writes m = -1e30, l = 0 and
+// leaves.  The loads that need no window (q, the span's page ids) go out
+// beside seq_lens/start_pos.  The span is walked in tiles of T positions
+// (64 for bf16 pools at D <= 128) through a ring of 2-3 shared-memory
+// stages:
+//   0. each tile's K and V rows are copied with 16-byte cp.async, one
+//      commit group per tile; while tile t is computed, the next stages'
+//      copies are in flight (wait_group(stages - 1), not wait_group 0);
+//      rows are padded by 16 bytes so neighbouring rows fall in other banks;
+//   1. the scores: with bf16 q and pools, D % 16 == 0 and G >= 8, on the
+//      tensor cores, mma.sync m16n8k16 with the G heads padded to the 16
+//      rows of A (q, from shared memory by ldmatrix) and a warp per 8
+//      positions as B; the products of two bf16 are exact in f32, so only
+//      the summing order differs from the plain version.  Otherwise 256 / T
+//      threads share a position, each scores its slice of the K row
+//      against all G heads in f32 FMAs, and shuffles add the slices.  On
+//      the card the tensor cores were the faster at G = 8 and the FMAs at
+//      G = 2, where padding G to 16 rows leaves most of each mma idle
+//      (PERF.md, section 6);
 //   2. one warp per head folds the tile's scores into the running max m and
-//      sum l (online softmax, f32) and leaves the probabilities in shared
-//      memory;
-//   3. each thread owns two dims of every head's output and a phase of the
-//      tile's positions, and accumulates p * v for all G heads; after the
-//      last tile the phases' partial sums are added in shared memory and
-//      divided by l.
-// The loop ends at the last visible position, so pages past seq_lens (the
-// engine points them at its scratch page 0) are never read; a page the
-// TPU kernel would visit with no visible position changes nothing there
-// (alpha = 1, p = 0).  Page ids are trusted: the caller checks them
-// against the pool (serving/engine.py checks each decode step's block
-// table on the host).
+//      sum l (online softmax, f32) and leaves the probabilities, in f32, in
+//      shared memory;
+//   3. each thread owns four dims of every head and a phase of the tile's
+//      positions and accumulates p * v in f32 FMAs (p stays f32: rounding
+//      it to bf16 for the tensor cores would cost the bf16 gate).
+//   At the span's end the phases' sums are added in shared memory and the
+//   partial (m, l, acc[G][D]) go to an f32 workspace.
+// G is a template parameter (1, 2, 4, 8 or 16; another G rounds up and the
+// extra heads are zeros that are never written out), so no head loop runs
+// predicated-off heads.
+//
+// paged_attention_kernel_combine, grid B * H, 128 threads: for each
+// sequence and head, over the spans that hold visible positions (worked
+// out from seq_lens and start_pos on the device),
+//   M = max_s m_s,
+//   out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30),
+// so an empty window gives zeros.  A thread takes four dims and a group of
+// spans, so that all of a sequence's partials are read at once.
+//
+// The wrapper (kernels/paged_attention.py:span_plan) picks the span, the
+// tile and the stages from the static shapes alone (no read of seq_lens on
+// the host, so the call stays free of device syncs) and allocates the
+// workspace; the kernels allocate nothing.  Page ids are trusted: the
+// caller checks them against the pool (serving/engine.py checks each
+// decode step's block table on the host); pages past the last visible
+// position are never read.
 //
 // Bound: bytes.  The call must read the K and V rows of every visible
 // position once (2 * KVH * D elements a position), q and the block-table
 // entries, and write the output: at the serving path's shapes (B = 8,
-// KVH = 2, D = 128, bf16, 1,024-4,000 visible positions a sequence) some
-// 20 MB, about 6 us at 3.35 TB/s; its 4 * H * D flops a position take
-// well under a microsecond.  The design reads each K/V byte once and keeps
-// a whole tile of copies in flight, but with B * KVH blocks (16 at those
-// shapes) on 132 SMs, one SM's copy and FMA rate, not the card's, sets its
-// time, and a tile's copies do not overlap the previous tile's arithmetic.
-// Splitting a sequence's positions across blocks with a combining pass,
-// and double-buffering the tiles, are the redesigns that close the gap.
+// KVH = 2, D = 128, bf16, 1,024-4,000 visible positions a sequence) about
+// 17 MB, 5 us at 3.35 TB/s, against 4 * H * D flops a position, about 134
+// MFLOP.  Splitting the positions puts every SM to work, the ring keeps
+// each block's next copies in flight while it computes, and at G >= 8 the
+// tensor cores take the score products.  What is left is latency: a live
+// block is a chain of dependent steps (its first loads, the tile copies,
+// three barriers a tile, the partials' write) and the combining pass is a
+// second launch, so the call stays several times over its byte bound
+// (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,16 +87,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxTile = kThreads; // one position a thread in phase 1
-constexpr int kMaxG = 16;
-constexpr float kNegInf = -1e30f; // the Pallas kernel's initial max
-constexpr size_t kSmemBudget = 200 * 1024;
+constexpr int kThreads = 256;       // split blocks
+constexpr int kCombineThreads = 128;
+constexpr float kNegInf = -1e30f;  // the Pallas kernel's initial max
+constexpr int kMaxSmem = 232448;   // 227 KB, the most a block may use
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -103,14 +127,60 @@ __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
+// 4 consecutive elements of shared memory as floats (8- or 16-byte aligned)
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+__device__ __forceinline__ void load4(const float* p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+}
+
+// ldmatrix: lanes 8i..8i+7 name the rows (16 bytes each) of 8x8 matrix i;
+// lane L receives elements 2 (L % 4), 2 (L % 4) + 1 of row L / 4 of each
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, f32 out (the products of two
+// bf16 are exact in f32)
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
 }
-__device__ __forceinline__ void cp_async_wait_all() {
+__device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// wait until at most stages - 1 groups are pending: the oldest tile is in
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  if (stages >= 3)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -125,94 +195,211 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Elements of a K or V row in shared memory: D plus 16 bytes of padding.
-template <typename TKV>
-__host__ __device__ inline int row_stride(int D) {
-  return D + 16 / (int)sizeof(TKV);
+__host__ __device__ inline int row_stride(int D, int elem) {
+  return D + 16 / elem;
 }
 
-// Shared memory: the K and V tiles [T][row_stride], then in floats q
-// [G][D], scores/probabilities [G][T], alpha [G], l [G], the output
-// phases' partial sums [nph][G][D], then the tile's pool rows [T] (ints).
-template <typename TKV>
-__host__ __device__ inline size_t smem_bytes(int G, int D, int T) {
-  const int nph = kThreads / (D / 2);
-  return 2 * (size_t)T * row_stride<TKV>(D) * sizeof(TKV) +
-         sizeof(float) * ((size_t)G * D + (size_t)G * T + 2 * G +
-                          (size_t)nph * G * D) +
-         sizeof(int) * (size_t)T;
+// Bytes of the tile ring, which the phases' partial sums [nph][GT][D]
+// (floats; nph = kThreads / (D / 4)) reuse after the last tile.
+__host__ __device__ inline size_t ring_bytes(int GT, int D, int T,
+                                             int stages, int elem) {
+  const size_t ring = (size_t)stages * 2 * T * row_stride(D, elem) * elem;
+  const size_t red = (size_t)(kThreads / (D / 4)) * GT * D * sizeof(float);
+  return ring > red ? ring : red;
 }
 
-template <typename TQ, typename TKV>
+// Shared memory: the ring; q as bf16 [16][D + 8] (the tensor cores' 16
+// rows; 16-byte aligned rows for ldmatrix); in floats q [GT][D], the
+// scores [GT][T], the probabilities [T][GT] and alpha [GT]; the span's page
+// ids [kThreads] (ints).
+// kernels/paged_attention.py:smem_bytes mirrors it.
+__host__ __device__ inline size_t smem_bytes(int GT, int D, int T, int stages,
+                                             int elem) {
+  return ring_bytes(GT, D, T, stages, elem) +
+         sizeof(float) * ((size_t)GT * D + 2 * (size_t)GT * T + GT) +
+         2 * 16 * (size_t)row_stride(D, 2) + sizeof(int) * kThreads;
+}
+
+template <typename TKV, int GT>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
-                       const TKV* __restrict__ vp,
-                       const int* __restrict__ block_tables,
-                       const int* __restrict__ seq_lens,
-                       const int* __restrict__ start_pos,
-                       TQ* __restrict__ out, int H, int KVH, int D, int P,
-                       int PPS, int T, float scale, float softcap) {
+paged_attention_kernel_split(const void* __restrict__ qv, int q_bf16,
+                             const TKV* __restrict__ kp,
+                             const TKV* __restrict__ vp,
+                             const int* __restrict__ block_tables,
+                             const int* __restrict__ seq_lens,
+                             const int* __restrict__ start_pos,
+                             float* __restrict__ ws_acc,
+                             float* __restrict__ ws_m,
+                             float* __restrict__ ws_l, int H, int KVH, int G,
+                             int D, int P, int PPS, int span, int n_spans,
+                             int T, int stages, float scale, float softcap) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int G = H / KVH;
-  const int b = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int pairs = D / 2, nph = kThreads / pairs;
-  const int rs = row_stride<TKV>(D);
-  TKV* ks = reinterpret_cast<TKV*>(smem);             // [T][rs]
-  TKV* vs = ks + (size_t)T * rs;                       // [T][rs]
-  float* qs = reinterpret_cast<float*>(vs + (size_t)T * rs);  // [G][D]
-  float* ps = qs + G * D;                              // [G][T]
-  float* alpha = ps + G * T;                           // [G]
-  float* lsum = alpha + G;                             // [G]
-  float* red = lsum + G;                               // [nph][G][D]
-  int* rows = reinterpret_cast<int*>(red + (size_t)nph * G * D);  // [T]
+  constexpr int HPW = (GT + 7) / 8;  // heads per warp in phase 2
+  const int b = blockIdx.x, kvh = blockIdx.y, sp = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rs = row_stride(D, sizeof(TKV));
+  const size_t stage_elems = 2 * (size_t)T * rs;     // K tile, then V tile
+  TKV* ring = reinterpret_cast<TKV*>(smem);
+  const int qrs = row_stride(D, 2);
+  __nv_bfloat16* qsb = reinterpret_cast<__nv_bfloat16*>(
+      smem + ring_bytes(GT, D, T, stages, sizeof(TKV)));  // [16][qrs]
+  float* qs = reinterpret_cast<float*>(qsb + 16 * qrs);   // [GT][D]
+  float* ps = qs + GT * D;                                // [GT][T]
+  float* pt = ps + GT * T;                                // [T][GT]
+  float* alpha = pt + GT * T;                             // [GT]
+  int* pages = reinterpret_cast<int*>(alpha + GT);        // [kThreads]
+  // QK^T on the tensor cores when q and the pools are bf16 and G >= 8: q
+  // as the 16 rows of A (heads past G are zeros), a warp per 8 positions
+  // as B
+  constexpr bool kMma = sizeof(TKV) == 2 && GT >= 8;
+  const bool use_mma = kMma && q_bf16 && D % 16 == 0;
+  float* red = reinterpret_cast<float*>(smem);  // [nph][GT][D], at the end
 
+  // The loads that do not depend on the window go out together with the
+  // window's own: q, the span's page ids
+  // and seq_lens/start_pos; their stores to shared memory are unconditional
+  // so that no load waits behind the window check.
   const size_t head0 = (size_t)b * H + (size_t)kvh * G;
-  for (int i = tid; i < G * D; i += kThreads) qs[i] = to_f32(q[head0 * D + i]);
+  const int* bt = block_tables + (size_t)b * PPS;
+  const int first_page = sp * span / P;
+  const int n_pages = (min(sp * span + span, PPS * P) - 1) / P - first_page + 1;
+  const bool cached_pages = n_pages <= kThreads;
+  constexpr int kQ = GT * 256 / kThreads;  // G * D <= GT * 256 elements
+  float qr[kQ];
+#pragma unroll
+  for (int k = 0; k < kQ; ++k) {
+    const int i = tid + k * kThreads;
+    qr[k] = 0.f;
+    if (i < G * D) {
+      const size_t at = head0 * D + i;
+      qr[k] = q_bf16 ? __bfloat162float(
+                           reinterpret_cast<const __nv_bfloat16*>(qv)[at])
+                     : reinterpret_cast<const float*>(qv)[at];
+    }
+  }
+  const int pg = cached_pages && tid < n_pages ? bt[first_page + tid] : 0;
   const int hi = min(seq_lens[b], PPS * P);
   const int lo = max(start_pos[b], 0);
-  const int* bt = block_tables + (size_t)b * PPS;
+#pragma unroll
+  for (int k = 0; k < kQ; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < GT * D) {
+      qs[i] = qr[k];
+      if (use_mma)   // exact: q is bf16
+        qsb[(i / D) * qrs + i % D] = __float2bfloat16(qr[k]);
+    }
+  }
+  if (use_mma)
+    for (int i = GT * D + tid; i < 16 * D; i += kThreads)
+      qsb[(i / D) * qrs + i % D] = __float2bfloat16(0.f);
+  pages[tid] = pg;
+  const int s_lo = max(lo, sp * span);
+  const int s_hi = min(hi, sp * span + span);
+  const size_t slot = ((size_t)b * KVH + kvh) * n_spans + sp;
+  if (s_lo >= s_hi) {            // no visible position in this span
+    if (tid < G) {
+      ws_m[slot * G + tid] = kNegInf;
+      ws_l[slot * G + tid] = 0.f;
+    }
+    return;
+  }
+  __syncthreads();               // qs and pages
   const size_t kv_stride = (size_t)KVH * D;  // elements between pool rows
+  const TKV* kbase = kp + (size_t)kvh * D;
+  const TKV* vbase = vp + (size_t)kvh * D;
   constexpr int kPiece = 16 / sizeof(TKV);   // elements in 16 bytes
   const int pieces = D / kPiece;             // 16-byte pieces of a row
+  const int n_tiles = (s_hi - s_lo + T - 1) / T;
 
-  // phase-3 ownership: dims 2 * dp, 2 * dp + 1 of every head, positions
-  // 4 * ph + 4 * nph * k .. + 3 of each tile
-  const int dp = tid % pairs, ph = tid / pairs;
+  // copy tile t of the span into its ring stage, one commit group a tile
+  auto fetch = [&](int t) {
+    if (t < n_tiles) {
+      TKV* ks = ring + (size_t)(t % stages) * stage_elems;
+      TKV* vs = ks + (size_t)T * rs;
+      const int p0 = s_lo + t * T;
+      const int n = min(T, s_hi - p0);
+      for (int i = tid; i < n * pieces; i += kThreads) {
+        const int j = i / pieces, c = (i - j * pieces) * kPiece;
+        const int pos = p0 + j, page = pos / P;
+        const size_t row =
+            (size_t)(cached_pages ? pages[page - first_page] : bt[page]) * P +
+            (pos - page * P);
+        const size_t src = row * kv_stride + c;
+        cp_async16(ks + j * rs + c, kbase + src);
+        cp_async16(vs + j * rs + c, vbase + src);
+      }
+    }
+    cp_async_commit();   // an empty group past the last tile keeps count
+  };
+
+  // phase 1 without the tensor cores: kThreads / T threads a position, pw
+  // positions a warp
+  const int tpp = kThreads / T, pw = 32 / tpp;
+  const int jl = warp * pw + lane % pw, split = lane / pw;
+  // phase 3: dims 4 * dq .. 4 * dq + 3 of every head, positions
+  // ph + nph * k of each tile
+  const int quads = D / 4, nph = kThreads / quads;
+  const int dq = tid % quads, ph = tid / quads;
   const bool owns = ph < nph;
-  float acc[kMaxG][2];
+  float acc[GT][4];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) acc[g][0] = acc[g][1] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // heads warp, warp+8
+  for (int g = 0; g < GT; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+  float m[HPW], l[HPW];          // heads warp + 8 * r
+#pragma unroll
+  for (int r = 0; r < HPW; ++r) m[r] = kNegInf, l[r] = 0.f;
 
-  for (int j0 = lo; j0 < hi; j0 += T) {
-    const int n = min(T, hi - j0);
-    // 0. the tile's pool rows, then its K and V rows into shared memory
-    if (tid < n) {
-      const int pos = j0 + tid;
-      rows[tid] = bt[pos / P] * P + pos % P;
-    }
-    __syncthreads();
-    for (int i = tid; i < n * pieces; i += kThreads) {
-      const int j = i / pieces, c = (i - j * pieces) * kPiece;
-      const size_t src = (size_t)rows[j] * kv_stride + (size_t)kvh * D + c;
-      cp_async16(ks + j * rs + c, kp + src);
-      cp_async16(vs + j * rs + c, vp + src);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    // 1. scores of position j0 + tid against the G heads
-    float s[kMaxG];
+  for (int t = 0; t < stages - 1; ++t) fetch(t);
+  for (int t = 0; t < n_tiles; ++t) {
+    fetch(t + stages - 1);       // into the stage tile t - 1 freed
+    cp_async_wait_ring(stages);  // tile t has landed (this thread's part)
+    __syncthreads();             // ... and every thread's
+    const TKV* ks = ring + (size_t)(t % stages) * stage_elems;
+    const TKV* vs = ks + (size_t)T * rs;
+    const int n = min(T, s_hi - (s_lo + t * T));
+
+    // 1. scores
+    if (use_mma) {
+      if constexpr (kMma) {
+        // a warp per 8 positions (nt), against the 16 rows of q
+        for (int nt = warp; nt < T / 8; nt += kThreads / 32) {
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          const TKV* kt = ks + nt * 8 * rs;
+          for (int k0 = 0; k0 < D; k0 += 16) {
+            uint32_t a[4], bb[2];
+            ldmatrix_x4(a, qsb + ((lane & 7) + 8 * ((lane >> 3) & 1)) * qrs +
+                               k0 + 8 * (lane >> 4));
+            ldmatrix_x2(bb, kt + (lane & 7) * rs + k0 + 8 * ((lane >> 3) & 1));
+            mma_bf16_16816(c, a, bb);
+          }
+          // c[e]: head lane / 4 (+ 8 for e >= 2), position 2 (lane % 4) + e % 2
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
-    if (tid < n) {
-      const TKV* kr = ks + tid * rs;
-      for (int c = 0; c < D; c += 8) {
-        float kf[8];
-        load8(kr + c, kf);
+          for (int e = 0; e < 4; ++e) {
+            const int g = (lane >> 2) + 8 * (e >> 1);
+            const int j = nt * 8 + 2 * (lane & 3) + (e & 1);
+            if (g < GT) {
+              float x = c[e] * scale;
+              if (softcap != 0.f) x = tanhf(x / softcap) * softcap;
+              ps[g * T + j] = j < n ? x : kNegInf;
+            }
+          }
+        }
+      }
+    } else {
+      // position jl against the GT heads, a slice of D a thread
+      float s[GT];
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
-          if (g < G) {
-            const float4 qa = *reinterpret_cast<const float4*>(qs + g * D + c);
+      for (int g = 0; g < GT; ++g) s[g] = 0.f;
+      if (jl < n) {
+        const TKV* kr = ks + jl * rs;
+        for (int c = split * 8; c < D; c += tpp * 8) {
+          float kf[8];
+          load8(kr + c, kf);
+#pragma unroll
+          for (int g = 0; g < GT; ++g) {
+            const float4 qa =
+                *reinterpret_cast<const float4*>(qs + g * D + c);
             const float4 qb =
                 *reinterpret_cast<const float4*>(qs + g * D + c + 4);
             float d = s[g];
@@ -224,23 +411,25 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
           }
         }
       }
-    }
-    if (tid < T) {
+      for (int o = pw; o < 32; o <<= 1) {
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
+        for (int g = 0; g < GT; ++g) s[g] += __shfl_xor_sync(~0u, s[g], o);
+      }
+      if (split == 0) {
+#pragma unroll
+        for (int g = 0; g < GT; ++g) {
           float x = s[g] * scale;
           if (softcap != 0.f) x = tanhf(x / softcap) * softcap;
-          ps[g * T + tid] = tid < n ? x : kNegInf;
+          ps[g * T + jl] = jl < n ? x : kNegInf;
         }
       }
     }
     __syncthreads();
     // 2. online softmax, one warp per head
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
+    for (int r = 0; r < HPW; ++r) {
       const int g = warp + 8 * r;
-      if (g < G) {                            // uniform across the warp
+      if (g < GT) {                            // uniform across the warp
         float* sg = ps + g * T;
         float mc = kNegInf;
         for (int j = lane; j < n; j += 32) mc = fmaxf(mc, sg[j]);
@@ -248,7 +437,7 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
         float sum = 0.f;
         for (int j = lane; j < T; j += 32) {
           const float p = j < n ? expf(sg[j] - m_new) : 0.f;
-          sg[j] = p;
+          pt[j * GT + g] = p;
           sum += p;
         }
         const float a = expf(m[r] - m_new);
@@ -258,114 +447,257 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
       }
     }
     __syncthreads();
-    // 3. P.V for this thread's two dims and positions
+    // 3. P.V for this thread's four dims and positions
     if (owns) {
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          acc[g][0] *= alpha[g];
-          acc[g][1] *= alpha[g];
-        }
+      for (int g = 0; g < GT; ++g) {
+        const float a = alpha[g];
+        acc[g][0] *= a; acc[g][1] *= a; acc[g][2] *= a; acc[g][3] *= a;
       }
-      for (int j = 4 * ph; j < n; j += 4 * nph) {
-        float2 v[4];
+      for (int j = ph; j < n; j += nph) {
+        float v[4];
+        load4(vs + j * rs + 4 * dq, v);
+        const float* pj = pt + j * GT;
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-          v[u] = j + u < n ? load2(vs + (j + u) * rs + 2 * dp)
-                           : make_float2(0.f, 0.f);
+        for (int g0 = 0; g0 < GT; g0 += 4) {
+          float p[4];
+          if constexpr (GT >= 4) {
+            const float4 p4 = *reinterpret_cast<const float4*>(pj + g0);
+            p[0] = p4.x; p[1] = p4.y; p[2] = p4.z; p[3] = p4.w;
+          } else {
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
-          if (g < G) {
-            const float4 p4 = *reinterpret_cast<const float4*>(ps + g * T + j);
-            acc[g][0] = fmaf(p4.x, v[0].x, acc[g][0]);
-            acc[g][1] = fmaf(p4.x, v[0].y, acc[g][1]);
-            acc[g][0] = fmaf(p4.y, v[1].x, acc[g][0]);
-            acc[g][1] = fmaf(p4.y, v[1].y, acc[g][1]);
-            acc[g][0] = fmaf(p4.z, v[2].x, acc[g][0]);
-            acc[g][1] = fmaf(p4.z, v[2].y, acc[g][1]);
-            acc[g][0] = fmaf(p4.w, v[3].x, acc[g][0]);
-            acc[g][1] = fmaf(p4.w, v[3].y, acc[g][1]);
+            for (int u = 0; u < GT; ++u) p[u] = pj[u];
+          }
+#pragma unroll
+          for (int u = 0; u < (GT < 4 ? GT : 4); ++u) {
+            float* ag = acc[g0 + u];
+            ag[0] = fmaf(p[u], v[0], ag[0]);
+            ag[1] = fmaf(p[u], v[1], ag[1]);
+            ag[2] = fmaf(p[u], v[2], ag[2]);
+            ag[3] = fmaf(p[u], v[3], ag[3]);
           }
         }
       }
     }
-    __syncthreads();   // the next tile rewrites rows, the tiles and ps
+    __syncthreads();   // the next fetch rewrites this stage, ps, pt, alpha
   }
 
-  // the phases' partial sums, then out = acc / max(l, 1e-30)
+  // the span's partial state: m and l from the phase-2 warps, acc summed
+  // over the phases in the (now idle) ring
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
+  for (int r = 0; r < HPW; ++r) {
     const int g = warp + 8 * r;
-    if (g < G && lane == 0) lsum[g] = l[r];
+    if (g < G && lane == 0) {
+      ws_m[slot * G + g] = m[r];
+      ws_l[slot * G + g] = l[r];
+    }
   }
   if (owns) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        float* dst = red + ((size_t)ph * G + g) * D + 2 * dp;
-        dst[0] = acc[g][0];
-        dst[1] = acc[g][1];
-      }
+    for (int g = 0; g < GT; ++g) {
+      float* dst = red + ((size_t)ph * GT + g) * D + 4 * dq;
+      dst[0] = acc[g][0]; dst[1] = acc[g][1];
+      dst[2] = acc[g][2]; dst[3] = acc[g][3];
     }
   }
   __syncthreads();
+  float* wa = ws_acc + slot * G * D;
   for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D;
     float x = 0.f;
-    for (int p = 0; p < nph; ++p) x += red[(size_t)p * G * D + i];
-    out[head0 * D + i] = from_f32<TQ>(x / fmaxf(lsum[g], 1e-30f));
+    for (int p = 0; p < nph; ++p) x += red[(size_t)p * GT * D + i];
+    wa[i] = x;
   }
 }
 
-template <typename TQ, typename TKV>
-int launch(const void* q, const void* kp, const void* vp, const void* bt,
-           const void* seq_lens, const void* start_pos, void* out, int B,
-           int H, int KVH, int D, int P, int PPS, float scale, float softcap,
-           cudaStream_t stream) {
-  const int G = H / KVH;
-  int T = kMaxTile;                 // the largest tile within the budget
-  while (T > 32 && smem_bytes<TKV>(G, D, T) > kSmemBudget) T /= 2;
-  const size_t smem = smem_bytes<TKV>(G, D, T);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<TQ, TKV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+__device__ __forceinline__ float block_reduce(float x, float* scratch,
+                                              bool is_max) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = is_max ? warp_max(x) : warp_sum(x);
+  __syncthreads();               // scratch is free again
+  if (lane == 0) scratch[warp] = x;
+  __syncthreads();
+  x = scratch[0];
+  for (int w = 1; w < kCombineThreads / 32; ++w)
+    x = is_max ? fmaxf(x, scratch[w]) : x + scratch[w];
+  return x;
+}
+
+template <typename TQ>
+__global__ void __launch_bounds__(kCombineThreads)
+paged_attention_kernel_combine(const float* __restrict__ ws_acc,
+                               const float* __restrict__ ws_m,
+                               const float* __restrict__ ws_l,
+                               const int* __restrict__ seq_lens,
+                               const int* __restrict__ start_pos,
+                               TQ* __restrict__ out, int H, int KVH, int G,
+                               int D, int P, int PPS, int span, int n_spans) {
+  __shared__ float w[kCombineThreads];   // a chunk of spans' weights
+  __shared__ float scratch[kCombineThreads / 32];
+  __shared__ float4 part[kCombineThreads];
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int kvh = h / G, g = h % G, tid = threadIdx.x;
+  TQ* o = out + ((size_t)b * H + h) * D;
+  const size_t base = ((size_t)b * KVH + kvh) * n_spans;
+  // the first chunk's m and l go out with the window's loads
+  const float m0 = tid < n_spans ? ws_m[(base + tid) * G + g] : kNegInf;
+  const float l0 = tid < n_spans ? ws_l[(base + tid) * G + g] : 0.f;
+  const int hi = min(seq_lens[b], PPS * P);
+  const int lo = max(start_pos[b], 0);
+  if (lo >= hi) {                // empty window: zeros
+    for (int d = tid; d < D; d += kCombineThreads) o[d] = from_f32<TQ>(0.f);
+    return;
   }
-  paged_attention_kernel<TQ, TKV><<<dim3(B, KVH), kThreads, smem, stream>>>(
-      (const TQ*)q, (const TKV*)kp, (const TKV*)vp, (const int*)bt,
-      (const int*)seq_lens, (const int*)start_pos, (TQ*)out, H, KVH, D, P,
-      PPS, T, scale, softcap);
-  return (int)cudaGetLastError();
+  const int s0 = lo / span, s1 = (hi - 1) / span;   // the live spans
+  // M and L over the live spans, a span a thread
+  float M = kNegInf;
+  for (int s = tid; s <= s1; s += kCombineThreads)
+    if (s >= s0)
+      M = fmaxf(M, s < kCombineThreads ? m0 : ws_m[(base + s) * G + g]);
+  M = block_reduce(M, scratch, true);
+  float L = 0.f;
+  for (int s = tid; s <= s1; s += kCombineThreads)
+    if (s >= s0)
+      L += s < kCombineThreads
+               ? expf(m0 - M) * l0
+               : expf(ws_m[(base + s) * G + g] - M) * ws_l[(base + s) * G + g];
+  const float inv = 1.f / fmaxf(block_reduce(L, scratch, false), 1e-30f);
+  // out = sum_s w_s acc_s / L: four dims and a group of spans a thread, so
+  // that every load of a chunk is in flight at once
+  const int quads = D / 4, groups = kCombineThreads / quads;
+  const int dq = tid % quads, sg = tid / quads;
+  const size_t stride = (size_t)G * D;   // floats between spans
+  const float* acc = ws_acc + (base * G + g) * D + 4 * dq;
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = s0; c0 <= s1; c0 += kCombineThreads) {
+    const int n = min(kCombineThreads, s1 - c0 + 1);
+    __syncthreads();             // the last chunk's weights are used
+    if (tid < n)
+      w[tid] = expf((c0 == 0 ? m0 : ws_m[(base + c0 + tid) * G + g]) - M);
+    __syncthreads();
+    if (sg < groups) {
+#pragma unroll 8
+      for (int k = sg; k < n; k += groups) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(acc + (size_t)(c0 + k) * stride);
+        const float wk = w[k];
+        x.x = fmaf(wk, a.x, x.x); x.y = fmaf(wk, a.y, x.y);
+        x.z = fmaf(wk, a.z, x.z); x.w = fmaf(wk, a.w, x.w);
+      }
+    }
+  }
+  if (sg < groups) part[tid] = x;
+  __syncthreads();
+  for (int q = tid; q < quads; q += kCombineThreads) {
+    float4 y = part[q];
+    for (int k = 1; k < groups; ++k) {
+      const float4 z = part[k * quads + q];
+      y.x += z.x; y.y += z.y; y.z += z.z; y.w += z.w;
+    }
+    o[4 * q] = from_f32<TQ>(y.x * inv);
+    o[4 * q + 1] = from_f32<TQ>(y.y * inv);
+    o[4 * q + 2] = from_f32<TQ>(y.z * inv);
+    o[4 * q + 3] = from_f32<TQ>(y.w * inv);
+  }
+}
+
+template <typename TKV, int GT>
+cudaError_t launch_split(dim3 grid, size_t smem, cudaStream_t stream,
+                         const void* q, int q_bf16, const void* kp,
+                         const void* vp, const int* bt, const int* sl,
+                         const int* sp, float* ws_acc, float* ws_m,
+                         float* ws_l, int H, int KVH, int G, int D, int P,
+                         int PPS, int span, int n_spans, int T, int stages,
+                         float scale, float softcap) {
+  // raise the dynamic shared-memory limit once per instantiation
+  static cudaError_t configured = cudaFuncSetAttribute(
+      paged_attention_kernel_split<TKV, GT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (configured != cudaSuccess) return configured;
+  paged_attention_kernel_split<TKV, GT><<<grid, kThreads, smem, stream>>>(
+      q, q_bf16, (const TKV*)kp, (const TKV*)vp, bt, sl, sp, ws_acc, ws_m,
+      ws_l, H, KVH, G, D, P, PPS, span, n_spans, T, stages, scale, softcap);
+  return cudaGetLastError();
+}
+
+template <typename TKV>
+cudaError_t dispatch_split(int GT, dim3 grid, size_t smem, cudaStream_t s,
+                           const void* q, int q_bf16, const void* kp,
+                           const void* vp, const int* bt, const int* sl,
+                           const int* sp, float* wa, float* wm, float* wl,
+                           int H, int KVH, int G, int D, int P, int PPS,
+                           int span, int n_spans, int T, int stages,
+                           float scale, float softcap) {
+#define PA_SPLIT(N)                                                         \
+  launch_split<TKV, N>(grid, smem, s, q, q_bf16, kp, vp, bt, sl, sp, wa, wm, \
+                       wl, H, KVH, G, D, P, PPS, span, n_spans, T, stages,  \
+                       scale, softcap)
+  switch (GT) {
+    case 1: return PA_SPLIT(1);
+    case 2: return PA_SPLIT(2);
+    case 4: return PA_SPLIT(4);
+    case 8: return PA_SPLIT(8);
+    default: return PA_SPLIT(16);
+  }
+#undef PA_SPLIT
 }
 
 }  // namespace
 
 // q_bf16 / kv_bf16: 1 when that operand is bfloat16, 0 when float32.
-// The wrapper (kernels/paged_attention.py) checks 1 <= G <= 16,
+// ws: an f32 workspace of B * KVH * n_spans * G * (D + 2) floats (acc, then
+// m, then l).  span, n_spans, tile and stages come from
+// kernels/paged_attention.py:span_plan.  The wrapper checks 1 <= G <= 16,
 // D % 8 == 0, 8 <= D <= 256, 16-byte aligned q and pools, and contiguity.
+// Launches the split kernel, then the combining kernel, on `stream`;
+// returns the first cudaError_t (0 on success).
 extern "C" int paged_attention_launch(const void* q, const void* kp,
                                       const void* vp, const void* bt,
                                       const void* seq_lens,
                                       const void* start_pos, void* out,
-                                      int B, int H, int KVH, int D, int P,
-                                      int PPS, int q_bf16, int kv_bf16,
-                                      float scale, float softcap,
+                                      void* ws, int B, int H, int KVH, int D,
+                                      int P, int PPS, int q_bf16, int kv_bf16,
+                                      int span, int n_spans, int tile,
+                                      int stages, float scale, float softcap,
                                       void* stream) {
   if (B <= 0) return 0;
+  const int G = H / KVH;
+  if (KVH <= 0 || H % KVH || G < 1 || G > 16 || D % 8 || D < 8 ||
+      D > 256 || P <= 0 || PPS <= 0 ||
+      (tile != 16 && tile != 32 && tile != 64) || span % tile ||
+      (stages != 2 && stages != 3) || (long long)span * n_spans <
+      (long long)PPS * P || n_spans > 65535 || KVH > 65535)
+    return (int)cudaErrorInvalidValue;
+  int GT = 1;
+  while (GT < G) GT *= 2;
+  const int elem = kv_bf16 ? 2 : 4;
+  const size_t smem = smem_bytes(GT, D, tile, stages, elem);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (q_bf16 && kv_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, kp, vp, bt, seq_lens,
-                                                start_pos, out, B, H, KVH, D,
-                                                P, PPS, scale, softcap, s);
+  const size_t n_ws = (size_t)B * KVH * n_spans * G;
+  float* ws_acc = (float*)ws;
+  float* ws_m = ws_acc + n_ws * D;
+  float* ws_l = ws_m + n_ws;
+  const dim3 grid(B, KVH, n_spans);
+  const cudaError_t e =
+      kv_bf16 ? dispatch_split<__nv_bfloat16>(
+                    GT, grid, smem, s, q, q_bf16, kp, vp, (const int*)bt,
+                    (const int*)seq_lens, (const int*)start_pos, ws_acc,
+                    ws_m, ws_l, H, KVH, G, D, P, PPS, span, n_spans, tile,
+                    stages, scale, softcap)
+              : dispatch_split<float>(
+                    GT, grid, smem, s, q, q_bf16, kp, vp, (const int*)bt,
+                    (const int*)seq_lens, (const int*)start_pos, ws_acc,
+                    ws_m, ws_l, H, KVH, G, D, P, PPS, span, n_spans, tile,
+                    stages, scale, softcap);
+  if (e != cudaSuccess) return (int)e;
   if (q_bf16)
-    return launch<__nv_bfloat16, float>(q, kp, vp, bt, seq_lens, start_pos,
-                                        out, B, H, KVH, D, P, PPS, scale,
-                                        softcap, s);
-  if (kv_bf16)
-    return launch<float, __nv_bfloat16>(q, kp, vp, bt, seq_lens, start_pos,
-                                        out, B, H, KVH, D, P, PPS, scale,
-                                        softcap, s);
-  return launch<float, float>(q, kp, vp, bt, seq_lens, start_pos, out, B, H,
-                              KVH, D, P, PPS, scale, softcap, s);
+    paged_attention_kernel_combine<__nv_bfloat16>
+        <<<B * H, kCombineThreads, 0, s>>>(
+        ws_acc, ws_m, ws_l, (const int*)seq_lens, (const int*)start_pos,
+        (__nv_bfloat16*)out, H, KVH, G, D, P, PPS, span, n_spans);
+  else
+    paged_attention_kernel_combine<float><<<B * H, kCombineThreads, 0, s>>>(
+        ws_acc, ws_m, ws_l, (const int*)seq_lens, (const int*)start_pos,
+        (float*)out, H, KVH, G, D, P, PPS, span, n_spans);
+  return (int)cudaGetLastError();
 }

@@ -8,6 +8,9 @@ The kernel wrappers (``key_search.py``, ``leaf_merge.py``,
 ``delta_scatter.py``, ``fused_read.py``) are held to these bit for bit,
 ``paged_attention.py`` within a tolerance (its sums run in another
 order), and ``ops.py`` runs them for tensors on the CPU.
+``paged_attention_split_ref`` mirrors the kernel's split into spans and
+its combining pass; the tests hold it to the reference, nothing on a
+main path runs it.
 """
 from __future__ import annotations
 
@@ -169,23 +172,38 @@ def log_replay_scatter_ref(image: torch.Tensor, rows: torch.Tensor,
 
 
 def batched_scan_fused_ref(snap, lo, lolen, hi, hilen, *, cfg,
-                           lb_fraction: float = 0.0):
+                           lb_fraction: float = 0.0, touched=None,
+                           loads=None):
     """Fused SCAN: the whole traversal — cache-tiered descend, leaf
     resolve, log merge, version resolution — over the snapshot's combined
     cache+heap view.  Returns (ScanResult, meters i32[3] =
-    [vmem_hits, heap_gathers, lb_routed])."""
+    [vmem_hits, heap_gathers, lb_routed]).  ``touched`` ([S + C] int32)
+    and ``loads`` ([B] int32), when given, receive what the kernel writes
+    into them: 1 at each row of the combined view the walk reads, and
+    each request's dependent row reads (``read_path.RowTrace``)."""
     view = _rp.fused_view(snap, cfg)
+    trace = None
+    if touched is not None or loads is not None:
+        trace = _rp.RowTrace(snap.image.shape[0] + snap.cache_image.shape[0],
+                             lo.shape[0], lo.device)
     leaf0, meters = _rp.descend_fused(snap, view, lo, lolen, cfg,
-                                      lb_fraction=lb_fraction)
-    res = _rp.scan_from_leaf(view, leaf0, lo, lolen, hi, hilen, cfg)
+                                      lb_fraction=lb_fraction, trace=trace)
+    res = _rp.scan_from_leaf(view, leaf0, lo, lolen, hi, hilen, cfg, trace)
+    if touched is not None:
+        touched[trace.touched != 0] = 1
+    if loads is not None:
+        loads.copy_(trace.loads)
     return res, meters
 
 
-def batched_get_fused_ref(snap, key, klen, *, cfg, lb_fraction: float = 0.0):
+def batched_get_fused_ref(snap, key, klen, *, cfg, lb_fraction: float = 0.0,
+                          touched=None, loads=None):
     """Fused GET: fused SCAN(K, K) + the shared equality post-pass.
-    Returns (GetResult, meters i32[3])."""
+    Returns (GetResult, meters i32[3]); ``touched`` and ``loads`` as for
+    ``batched_scan_fused_ref``."""
     res, meters = batched_scan_fused_ref(snap, key, klen, key, klen,
-                                         cfg=cfg, lb_fraction=lb_fraction)
+                                         cfg=cfg, lb_fraction=lb_fraction,
+                                         touched=touched, loads=loads)
     return _rp.get_from_scan(res, key, klen), meters
 
 
@@ -225,4 +243,57 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     o = torch.where(mask.any(dim=1)[:, None, None, None], o, 0.0)
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              seq_lens: torch.Tensor, start_pos=None, *,
+                              span: int, scale: float | None = None,
+                              softcap: float = 0.0) -> torch.Tensor:
+    """``paged_attention_ref`` computed as the kernel splits it
+    (``csrc/paged_attention.cu``): each span of ``span`` positions gives a
+    partial state (m = the span's max score, or -1e30 when it holds no
+    visible position; l = the sum of e^(s - m); acc = the sum of
+    e^(s - m) v), and the spans that hold visible positions combine as
+    ``out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30)``
+    with M the largest m_s, so an empty window gives zeros.  Same
+    arguments as ``paged_attention_ref``."""
+    B, H, D = q.shape
+    _, P, KVH, _ = k_pages.shape
+    G = H // KVH
+    PPS = block_tables.shape[1]
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    if start_pos is None:
+        start_pos = torch.zeros_like(seq_lens)
+    n_spans = -(-PPS * P // span)
+    pad = n_spans * span - PPS * P
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, PPS * P, KVH, D).float()
+    v = v_pages[bt].reshape(B, PPS * P, KVH, D).float()
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = q.reshape(B, KVH, G, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    pos = torch.arange(n_spans * span, device=q.device)[None, :]
+    hi = seq_lens.clamp(max=PPS * P)[:, None]
+    mask = (pos < hi) & (pos >= start_pos.clamp(min=0)[:, None])
+    mask = mask.reshape(B, 1, 1, n_spans, span)
+    s = torch.where(mask, s.reshape(B, KVH, G, n_spans, span), -1e30)
+    # per span: (m, l, acc)
+    m = s.amax(dim=-1)                                   # [B, KVH, G, S]
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgnj,bnjkd->bkgnd", p,
+                       v.reshape(B, n_spans, span, KVH, D))
+    # combine over the spans that hold visible positions
+    live = mask.any(dim=-1)                              # [B, 1, 1, S]
+    M = torch.where(live, m, -1e30).amax(dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - M), 0.0)
+    o = (w[..., None] * acc).sum(dim=3) \
+        / (w * l).sum(dim=-1).clamp(min=1e-30)[..., None]
     return o.reshape(B, H, D).to(q.dtype)

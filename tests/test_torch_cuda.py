@@ -16,7 +16,7 @@ import torch
 from repro_torch.core import (FeedTopology, HoneycombConfig, HoneycombStore,
                               NodeImageLayout, ReplicationConfig,
                               ShardedHoneycombStore, uniform_int_boundaries)
-from repro_torch.core.heap import LEAF
+from repro_torch.core.heap import LEAF, LOG_UPDATE
 from repro_torch.core.keys import int_key, pack_keys
 from repro_torch.core.read_path import attach_cache_image
 from repro_torch.kernels import (build, delta_scatter, fused_read,
@@ -107,6 +107,139 @@ def test_fused_scan_kernel_matches_plain(cuda, cfg, n, lb_fraction):
         _assert_equal(want, got)
         assert torch.equal(wm, gm)
         assert bool(want.truncated.any())  # the slot budget is exercised
+
+
+@pytest.mark.parametrize("cache_levels", [1, 3])
+def test_fused_read_kernel_three_level_tree(cuda, cache_levels):
+    """The default geometry at 2**14 keys (a three-level tree) with one and
+    three cached levels; batches of 101 GETs and 77 SCANs, neither a
+    multiple of the kernel's warps per block: the results and meters, the
+    rows the kernel marks read (``touched``) and each request's dependent
+    row reads (``loads``) equal the plain walk's."""
+    cfg = dataclasses.replace(HoneycombConfig(), cache_levels=cache_levels)
+    n = 1 << 14
+    st = _store(cfg, n, cuda)
+    assert st.tree.height >= 3
+    rng = np.random.default_rng(3)
+    key, klen = _keys([int_key(int(i)) for i in
+                       rng.integers(0, n + 500, 101)], cfg, cuda)
+    los = rng.integers(0, n + 20, 77)
+    widths = rng.choice([0, 3, 8, 40, 200], 77)
+    lo, lolen = _keys([int_key(int(x)) for x in los], cfg, cuda)
+    hi, hilen = _keys([int_key(int(x + w)) for x, w in zip(los, widths)],
+                      cfg, cuda)
+    for snap in _snapshots(st, cfg):
+        for lb_fraction in (0.0, 0.25):
+            kw = dict(cfg=cfg, lb_fraction=lb_fraction)
+            build.reset_launches()
+            for fn, kfn, x in (
+                    (ref.batched_get_fused_ref, fused_read.batched_get_fused,
+                     (key, klen)),
+                    (ref.batched_scan_fused_ref,
+                     fused_read.batched_scan_fused, (lo, lolen, hi, hilen))):
+                marks = [_row_marks(snap, x[0]) for _ in range(2)]
+                want, wm = fn(snap, *x, **kw, touched=marks[0][0],
+                              loads=marks[0][1])
+                got, gm = kfn(snap, *x, **kw, touched=marks[1][0],
+                              loads=marks[1][1])
+                _assert_equal(want, got)
+                assert torch.equal(wm, gm)
+                assert torch.equal(marks[0][0], marks[1][0])
+                assert torch.equal(marks[0][1], marks[1][1])
+                assert int(marks[1][1].min()) >= st.tree.height
+            assert build.LAUNCHES["fused_get"] == 1
+            assert build.LAUNCHES["fused_scan"] == 1
+
+
+def _row_marks(snap, batch):
+    """Zeroed ``touched`` [S + C] and ``loads`` [B] for a fused read."""
+    n = snap.image.shape[0] + snap.cache_image.shape[0]
+    return (torch.zeros(n, dtype=torch.int32, device=batch.device),
+            torch.zeros(batch.shape[0], dtype=torch.int32,
+                        device=batch.device))
+
+
+def _corrupt_leaves(snap, cfg, seed):
+    """The snapshot with random nitems, nlog, log back pointers and order
+    hints in every leaf row: counts below zero and past their blocks,
+    hints anywhere, and back pointers drawn from small ones, the whole
+    int32 range and those whose ranks backptr * (L + 1) + pos come near
+    2**31.  Every fourth leaf instead holds one older log entry of its
+    last sorted item's key ranked exactly INT32_MAX, which the stable
+    argsort places after the unused sorted slots: not in the item's run
+    of equal keys."""
+    rng = np.random.default_rng(seed)
+    off = NodeImageLayout.for_config(cfg).slots
+    N, L = cfg.node_cap, cfg.log_cap
+    img = snap.image.clone()
+    leaves = torch.nonzero(img[:, off["ntype"].offset] == LEAF)[:, 0]
+    n = leaves.shape[0]
+
+    def put(field, vals):
+        o = off[field].offset
+        w = vals.shape[1] if vals.ndim == 2 else 1
+        img[leaves[:, None], o + torch.arange(w, device=img.device)] = \
+            torch.from_numpy(vals.reshape(n, w).astype(np.int32)).to(
+                img.device)
+
+    put("nitems", rng.integers(-3, N + 4, n))
+    put("nlog", rng.integers(-3, L + 4, n))
+    wrap_at = (2 ** 31 - 1) // (L + 1)       # backptr * (L + 1) near 2**31
+    u = rng.random((n, L))
+    bp = np.select([u < 0.4, u < 0.7],
+                   [rng.integers(-2, N + 3, (n, L)),
+                    rng.integers(-2 ** 31, 2 ** 31, (n, L))],
+                   wrap_at + rng.integers(-1, 2, (n, L)))
+    put("log_backptr", bp)
+    put("log_hint", rng.integers(-2, L + 3, (n, L)))
+    # the exact tie: nlog 1, nitems in [1, N), entry 0 = sorted item
+    # nitems - 1's key, one version older, rank INT32_MAX
+    tie = leaves[::4]
+    nit = img[tie, off["nitems"].offset].clamp(1, N - 1)
+    img[tie, off["nitems"].offset] = nit
+    img[tie, off["nlog"].offset] = 1
+    KW = cfg.key_words
+    ar = torch.arange(KW, device=img.device)
+    src = off["skeys"].offset + (nit - 1)[:, None] * KW + ar
+    img[tie[:, None], off["log_keys"].offset + ar] = img[tie[:, None], src]
+    img[tie, off["log_keylen"].offset] = \
+        img[tie, off["skeylen"].offset + nit - 1]
+    img[tie, off["log_backptr"].offset] = wrap_at
+    img[tie, off["log_hint"].offset] = (2 ** 31 - 1) - wrap_at * (L + 1)
+    img[tie, off["log_vdelta"].offset] = -1
+    img[tie, off["log_op"].offset] = LOG_UPDATE
+    return attach_cache_image(snap._replace(image=img), cfg)
+
+
+@pytest.mark.parametrize("cfg,n", [(SMALL, 300), (HoneycombConfig(), 3000)])
+def test_fused_read_kernel_on_corrupt_leaves(cuda, cfg, n):
+    """Leaves with random count, back-pointer and hint words (ranks that
+    wrap in int32 included) read as the plain version reads them: GET and
+    SCAN results and meters bit for bit, so the kernel's merge order is
+    the stable argsort of the ranks on any input."""
+    st = _store(cfg, n, cuda)
+    rng = np.random.default_rng(5)
+    key, klen = _keys([int_key(int(i)) for i in
+                       rng.integers(0, n + 50, 100)], cfg, cuda)
+    los = rng.integers(0, n + 20, 96)
+    widths = rng.choice([0, 3, 8, 40, 200], 96)
+    lo, lolen = _keys([int_key(int(x)) for x in los], cfg, cuda)
+    hi, hilen = _keys([int_key(int(x + w)) for x, w in zip(los, widths)],
+                      cfg, cuda)
+    for seed, snap in enumerate(_snapshots(st, cfg)):
+        snap = _corrupt_leaves(snap, cfg, seed)
+        for lb_fraction in (0.0, 0.25):
+            kw = dict(cfg=cfg, lb_fraction=lb_fraction)
+            want, wm = ref.batched_get_fused_ref(snap, key, klen, **kw)
+            got, gm = fused_read.batched_get_fused(snap, key, klen, **kw)
+            _assert_equal(want, got)
+            assert torch.equal(wm, gm)
+            want, wm = ref.batched_scan_fused_ref(snap, lo, lolen, hi, hilen,
+                                                  **kw)
+            got, gm = fused_read.batched_scan_fused(snap, lo, lolen, hi,
+                                                    hilen, **kw)
+            _assert_equal(want, got)
+            assert torch.equal(wm, gm)
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
@@ -452,9 +585,13 @@ def _merge_case(B, N, L, seed):
 
 
 #: (B, H, KVH, D, P, PPS): the reference's sweep (tests/test_kernels.py),
-#: then G = 1 with D = 80 and G = 8 with D = 128
+#: then G = 1 with D = 80, G = 8 with D = 128, G = 2 with D = 256 (as
+#: gemma3-12b), G = 16, and a long case whose live lengths span many of
+#: the kernel's spans
 PAGED_SWEEP = [(2, 4, 2, 16, 8, 3), (4, 8, 8, 32, 16, 2), (2, 8, 2, 16, 8, 4),
-               (3, 4, 4, 80, 8, 3), (2, 16, 2, 128, 16, 3)]
+               (3, 4, 4, 80, 8, 3), (2, 16, 2, 128, 16, 3),
+               (2, 4, 2, 256, 16, 3), (2, 16, 1, 32, 8, 3),
+               (3, 8, 2, 64, 32, 24)]
 
 
 def _paged_case(B, H, KVH, D, P, PPS, seed, NP=16, start_hi=2):
@@ -659,6 +796,32 @@ def test_paged_attention_kernel_page_edges_windows_scratch(cuda, dtype):
     _paged_check(_paged_args(case, cuda, dtype, dtype), scale=0.1)
     one = tuple(a[:1] if a.ndim and a.shape[0] == B else a for a in case)
     _paged_check(_paged_args(one, cuda, dtype, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_windows_start_mid_span(cuda, dtype):
+    """Windows that start inside a span, spans wholly below a window and
+    past its end, and an empty window, under the wrapper's span plan and
+    under plans of short spans, three stages and other tiles."""
+    B, H, KVH, D, P, PPS = 5, 8, 2, 64, 32, 24
+    q, kp, vp, bt, sl, start = _paged_case(B, H, KVH, D, P, PPS, seed=21,
+                                           NP=40)
+    sl[:] = [P * PPS, 700, 129, 64, 300]
+    start[:] = [200, 77, 120, 64, 8]       # sequence 3 sees nothing
+    for b in range(B):
+        bt[b, -(-sl[b] // P):] = 0
+    args = _paged_args((q, kp, vp, bt, sl, start), cuda, dtype, dtype)
+    got = _paged_check(args, softcap=30.0)
+    assert float(got[3].float().abs().max()) == 0.0
+    elem = 2 if dtype == torch.bfloat16 else 4
+    want = ref.paged_attention_ref(*args, softcap=30.0)
+    for span, tile, stages in ((16, 16, 2), (48, 16, 3), (64, 32, 2),
+                               (96, 32, 3), (128, 64, 2)):
+        plan = paged_attention.SpanPlan(
+            span, -(-P * PPS // span), tile, stages,
+            paged_attention.smem_bytes(H // KVH, D, tile, stages, elem))
+        got = paged_attention._launch(*args, plan, D ** -0.5, 30.0)
+        torch.testing.assert_close(got, want, **PAGED_TOL[dtype])
 
 
 def test_paged_attention_kernel_empty_window_gives_zeros(cuda):

@@ -128,6 +128,112 @@ def test_fused_scan_plain_matches_reference(lb_fraction, back):
     assert bool(got.truncated.any()) and int(got.count.max()) > 1
 
 
+def _scalar_walk(ts, lo, lolen, hi, hilen, b, lb_fraction):
+    """Request ``b`` of a fused SCAN walked one row at a time: the set of
+    rows it reads in the combined cache+heap view and its count of
+    dependent row reads, counted as the fused kernel counts them (a cached
+    level one; a heap level or a sibling leaf one, plus one per
+    old-version hop)."""
+    cfg, view = TCFG, trp.fused_view(ts, TCFG)
+    S, n = ts.image.shape[0], ts.image.shape[0] + ts.cache_image.shape[0]
+    clids = ts.cache_lids.tolist()
+    rows, loads = set(), 0
+    one = slice(b, b + 1)
+
+    def heap_row(lid):
+        nonlocal loads
+        loads += 1
+        p = int(view.pagetable[lid])
+        for _ in range(cfg.max_version_chain):
+            rows.add(p % n)
+            old = int(view.oldptr[p])
+            if not (int(view.version[p]) > ts.read_version and old != -1):
+                break
+            p, loads = old, loads + 1
+        rows.add(p % n)
+        return p
+
+    def items(p):                     # the live (key, klen, ...) of leaf p
+        keys, kl, _, _, live = trp._resolve_leaf(view, torch.tensor([p]),
+                                                 cfg)
+        return keys[0][live[0]], kl[0][live[0]]
+
+    def cmp(keys, kl, q, ql):         # each item against the query
+        return trp.torch_key_cmp(keys, kl, q[one].expand(len(kl), -1),
+                                 ql[one].expand(len(kl)))
+
+    routed = (b % 16) < round(lb_fraction * 16)
+    lid = ts.root_lid
+    for _ in range(cfg.max_height):
+        if lid in clids and lid != -1 and not routed:
+            p = S + clids.index(lid)
+            rows.add(p)
+            loads += 1
+        else:
+            p = heap_row(lid)
+        if int(view.ntype[p]) == 1:   # LEAF
+            break
+        lid = int(trp._child(view, torch.tensor([p]), lo[one], lolen[one],
+                             cfg)[0])
+    leaf = p
+    floor = None                      # floor pre-pass: walk left
+    for _ in range(cfg.max_scan_leaves):
+        keys, kl = items(p)
+        leq = cmp(keys, kl, lo, lolen) <= 0
+        if bool(leq.any()):
+            i = int(torch.nonzero(leq)[-1, 0])
+            floor = (keys[i:i + 1], kl[i:i + 1])
+            break
+        if int(view.lsib[p]) == -1:
+            break
+        p = heap_row(max(int(view.lsib[p]), 0))
+    count = int(floor is not None and int(cmp(*floor, hi, hilen)[0]) <= 0)
+    p, done = leaf, False             # forward scan: walk right
+    for _ in range(cfg.max_scan_leaves):
+        keys, kl = items(p)
+        c_hi = cmp(keys, kl, hi, hilen)
+        emitted = int(((c_hi <= 0) & (cmp(keys, kl, lo, lolen) > 0)).sum())
+        trunc = emitted > cfg.max_scan_items - count
+        count += min(emitted, cfg.max_scan_items - count)
+        done = bool((c_hi > 0).any()) or int(view.rsib[p]) == -1 or trunc
+        if done:
+            break
+        p = heap_row(max(int(view.rsib[p]), 0))
+    return rows, loads
+
+
+@pytest.mark.parametrize("back", [0, 30, 200])
+@pytest.mark.parametrize("lb_fraction", [0.0, 0.25])
+def test_fused_row_trace_matches_a_scalar_walk(lb_fraction, back):
+    """The plain fused SCAN's ``touched`` and ``loads`` (what the kernel
+    must write into them) equal a row-at-a-time walk of each request,
+    through cached and routed levels, MVCC hops and sibling leaves; the
+    results are those of an untraced call."""
+    _, ts = _snapshots(back)
+    los, his = _scan_inputs()
+    # deleted keys: where one was a leaf's first key, the floor pre-pass
+    # walks left
+    los += [int_key(i) for i in range(0, N_ITEMS, 13)]
+    his += [int_key(i + 5) for i in range(0, N_ITEMS, 13)]
+    (_, (lo, lolen)), (_, (hi, hilen)) = _keys(los), _keys(his)
+    n = ts.image.shape[0] + ts.cache_image.shape[0]
+    touched = torch.zeros(n, dtype=torch.int32)
+    loads = torch.zeros(len(los), dtype=torch.int32)
+    kw = dict(cfg=TCFG, lb_fraction=lb_fraction)
+    got, gm = tref.batched_scan_fused_ref(ts, lo, lolen, hi, hilen, **kw,
+                                          touched=touched, loads=loads)
+    want, wm = tref.batched_scan_fused_ref(ts, lo, lolen, hi, hilen, **kw)
+    for a, b in zip(want + (wm,), got + (gm,)):
+        assert torch.equal(a, b)
+    rows = set()
+    for b in range(len(los)):
+        r, n_loads = _scalar_walk(ts, lo, lolen, hi, hilen, b, lb_fraction)
+        assert int(loads[b]) == n_loads, b
+        rows |= r
+    assert set(torch.nonzero(touched)[:, 0].tolist()) == rows
+    assert int(touched.max()) == 1 and int(loads.max()) > int(loads.min())
+
+
 @pytest.mark.parametrize("op", ["get", "scan"])
 def test_reference_backend_matches_reference(op):
     js, ts = _snapshots(0)

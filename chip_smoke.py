@@ -66,7 +66,8 @@ kernel's device time comes from a torch.profiler trace with the L2 cache
 flushed before every launch; the time per call through its Python
 wrapper and the plain version's time come from CUDA events.  The fused
 read's and paged attention's times before their redesign are printed
-beside this run's.
+beside this run's.  Both delta-sync scatters' byte bound counts the
+distinct dirty rows only (``scatter_bound_ms``).
 
 Run from the repository root on a machine with a CUDA GPU:
 
@@ -299,6 +300,14 @@ def max_abs_err(want, got) -> int:
     """Largest absolute difference over every field of two results."""
     return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
                for a, b in zip(want, got))
+
+
+def scatter_bound_ms(d: int, W: int, D: int) -> float:
+    """The least time of one delta's row copy (both scatter kernels): its
+    d distinct dirty rows of W words read once and written once, and its
+    D row indices read, over the memory rate.  The D - d pad repeats
+    carry the data of the row before them and move nothing."""
+    return (2 * d * W * 4 + D * 4) / HBM_BYTES_PER_S * 1e3
 
 
 def main() -> int:
@@ -646,6 +655,18 @@ def single_shard_path(args, dev, flush):
     calls = [lambda c=c: delta_scatter.snapshot_image_scatter(
         work, c[0], c[1]) for c in cases]
     ms = device_ms(calls, 64, "row_scatter_kernel", flush)
+    # the design's fixed cost: the same launch where every row repeats the
+    # first (one row copied, the other blocks skip theirs); and a
+    # contiguous copy of the d distinct rows, the card's own copy of the
+    # same bytes
+    floor_ms = device_ms(
+        [lambda c=c: delta_scatter.snapshot_image_scatter(
+            work, c[0][:1].expand(D).contiguous(),
+            c[1][:1].expand(D, IW).contiguous()) for c in cases], 64,
+        "row_scatter_kernel", flush)
+    src = cases[0][1][:d].contiguous()
+    copy = torch.empty_like(src)
+    copy_ms = device_all_ms([lambda: copy.copy_(src)], 64, flush)
     wrapper_ms = cuda_ms(calls, 200)
     plain_ms = cuda_ms([lambda c=c: ref.snapshot_image_scatter_ref(
         work, c[0], c[1]) for c in cases], 50)
@@ -653,22 +674,28 @@ def single_shard_path(args, dev, flush):
                             for c in cases], 64, "index_copy", flush)
 
     clone_ms = image_clone_ms(snap.image)
-    bound_ms = (D * IW * 4 + D * 4 + d * IW * 4) / HBM_BYTES_PER_S * 1e3
+    bound_ms = scatter_bound_ms(d, IW, D)
+    plan = delta_scatter.scatter_plan((IW,), D)
     print(f"row_scatter: equals its plain version and index_copy_ exactly "
           f"(tolerance 0); kernel {ms:.4f} ms device time for {D} rows ({d} "
-          f"distinct) of {IW} words (L2 flushed), {wrapper_ms:.4f} ms per "
+          f"distinct) of {IW} words (L2 flushed; {plan.grid} blocks of "
+          f"{plan.threads} threads, K = {plan.k}), {wrapper_ms:.4f} ms per "
           f"call through the wrapper back to back (plain {plain_ms:.4f} ms, "
           f"index_copy_ {library_ms:.4f} ms device time), bound "
           f"{bound_ms:.6f} ms; the per-delta image clone ({S * IW * 4} B "
           f"each way) takes {clone_ms:.4f} ms per clone (CUDA events over "
           f"32 back to back)")
+    print(f"  row_scatter: the same launch copying one row (every row a "
+          f"repeat of the first) {floor_ms:.4f} ms; a contiguous copy_ of "
+          f"the {d} distinct rows ({d * IW * 4} B) {copy_ms:.4f} ms")
     kernels.append({
         "name": "row_scatter", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/row_scatter.cu",
         "replaces": "src/repro/kernels/delta_scatter.py:54",
         "launches": launches["row_scatter"], "max_abs_err": err, "ms": ms,
         "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes", "library_ms": library_ms, "D": D})
+        "bound_by": "bytes", "library_ms": library_ms, "D": D,
+        "floor_ms": floor_ms, "copy_ms": copy_ms})
     return kernels, launches, (snap, [keys for keys, _ in gets2])
 
 
@@ -1737,6 +1764,12 @@ def service_legacy_path(args, dev, flush):
                                                               c[1])
              for c in cases]
     ms = device_ms(calls, 64, "multi_scatter_kernel", flush)
+    # the design's fixed cost: the same launch copying one row
+    floor_ms = device_ms(
+        [lambda c=c: delta_scatter.snapshot_multi_scatter(
+            dsts, c[0][:1].expand(D).contiguous(),
+            [u[:1].expand(D, u.shape[1]).contiguous() for u in c[1]])
+         for c in cases], 64, "multi_scatter_kernel", flush)
     wrapper_ms = cuda_ms(calls, 200)
     plain_ms = cuda_ms([lambda c=c: ref.snapshot_multi_scatter_ref(
         dsts, c[0], c[1]) for c in cases], 50)
@@ -1753,7 +1786,7 @@ def service_legacy_path(args, dev, flush):
     row_ms = device_ms([lambda c=c: delta_scatter.snapshot_image_scatter(
         image, c[0], c[1]) for c in packed_cases], 64, "row_scatter_kernel",
         flush)
-    bound_ms = (2 * d * IW * 4 + D * 4) / HBM_BYTES_PER_S * 1e3
+    bound_ms = scatter_bound_ms(d, IW, D)
     print(f"multi_scatter: equals its plain version and 24 index_copy_ calls "
           f"exactly (tolerance 0) at S = {S} rows, D = {D} ({d} distinct), "
           f"24 fields of 1 to {max(widths)} words ({IW} in all); kernel "
@@ -1763,6 +1796,8 @@ def service_legacy_path(args, dev, flush):
           f"{library_ms:.4f} ms device time in all, bound {bound_ms:.6f} ms "
           f"({2 * d * IW * 4 + D * 4} B); the packed layout's row scatter of "
           f"the same rows as one [{S}, {IW}] image {row_ms:.4f} ms")
+    print(f"  multi_scatter: the same launch copying one row (every row a "
+          f"repeat of the first) {floor_ms:.4f} ms")
     return ({"name": "multi_scatter", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/multi_scatter.cu",
              "replaces": "src/repro/kernels/delta_scatter.py:178",
@@ -1770,7 +1805,7 @@ def service_legacy_path(args, dev, flush):
              "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": "bytes",
              "library_ms": library_ms, "row_scatter_packed_ms": row_ms,
-             "D": D, "S": S}, launches)
+             "D": D, "S": S, "floor_ms": floor_ms}, launches)
 
 
 def serving_path(args, dev, flush):

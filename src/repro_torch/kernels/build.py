@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C launcher.  ``load(name)``
 compiles it with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/repro_torch/`` at the repository root (named by a hash of the
-source, so an edited source rebuilds) and loads it; ``launcher(name, fn,
-argtypes)`` binds one of its C launchers, once, for every wrapper;
-``build(names)`` starts one ``nvcc`` per missing library, all at once, and
-waits for them.  Nothing is built when this module is imported.
+source and of the shared ``csrc/*.cuh`` headers, so an edited source or
+header rebuilds) and loads it; ``launcher(name, fn, argtypes)`` binds one
+of its C launchers, once, for every wrapper; ``build(names)`` starts one
+``nvcc`` per missing library, all at once, and waits for them.  Nothing
+is built when this module is imported.
 
 ``LAUNCHES`` holds one plain integer per kernel; each wrapper adds one
 where it launches its kernel, and nowhere else.
@@ -55,9 +56,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source
+    and of every header in ``csrc/`` (a source may include any of them)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names) -> dict[str, str]:

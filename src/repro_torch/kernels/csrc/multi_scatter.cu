@@ -5,69 +5,49 @@
 // Replaces the Pallas kernel repro/kernels/delta_scatter.py:
 // snapshot_multi_scatter, whose grid walked the dirty rows in order with
 // the row indices scalar-prefetched and 24 aliased field outputs, one
-// (1, W_f) block per field per step.  Here the field table (24 x
-// destination pointer, update pointer, width in 32-bit words) travels by
-// value as a kernel parameter, about 500 B, well inside the 4 KB limit,
-// so no table is copied to the device before the launch.  Every dirty row
-// is one thread block that walks the fields in order; neighbouring threads
-// move neighbouring words of a field, so each field's row copy stays
-// coalesced.  Blocks run in any order, which is safe because repeated
-// rows carry identical data (the store pads a delta to a power of two by
-// repeating its last row).
+// (1, W_f) block per field per step.  Here blocks run in any order, which
+// is safe because repeated rows carry identical data (the store pads a
+// delta to a power of two by repeating its last row).
 //
-// Bound: bytes.  The call must read each field's update row once and
-// write it once: 2 * D * sum(W_f) * 4 bytes over the card's memory rate,
-// the same as the packed layout's row scatter (both move 1273 words per
-// dirty node at the default geometry).  Widths run from 1 to 512 words, so
-// most threads of a block idle on the narrow fields; a later version can
-// flatten the table or give each field its own copy engine.
-//
-// Any 4-byte element type scatters the same way; the wrapper passes raw
-// pointers.  Negative rows wrap Python-style.  The wrapper raises on a row
-// outside [-S, S) before it launches, as the plain version does; the
-// kernel still skips such a row so that no launch writes outside a field.
+// The legacy layout is the 24-field case of the flattened row copy in
+// scatter_rows.cuh, which holds the design and the bound: a row is its
+// fields concatenated in schema order (1273 words at the default
+// geometry, as the packed image's row), the field pointers and the prefix
+// offsets of the widths travel by value and are staged in shared memory,
+// each word finds its field by a binary search of the offsets, and each
+// thread issues all K loads of its chunk before its stores.  So the call
+// moves the same words as the packed row scatter of the same rows, and a
+// narrow field (eleven are one word wide) costs only its own words.
 
-#include <cuda_runtime.h>
+#include "scatter_rows.cuh"
 
 namespace {
 
-constexpr int kMaxFields = 32;
-
-struct FieldTable {
-  int* dst[kMaxFields];
-  const int* upd[kMaxFields];
-  int width[kMaxFields];
-  int n;
-};
-
-__global__ void multi_scatter_kernel(const FieldTable table, int S,
-                                     const int* __restrict__ rows) {
-  int r = rows[blockIdx.x];
-  if (r < 0) r += S;
-  if (r < 0 || r >= S) return;
-  for (int f = 0; f < table.n; ++f) {
-    const int W = table.width[f];
-    int* d = table.dst[f] + (size_t)r * W;
-    const int* u = table.upd[f] + (size_t)blockIdx.x * W;
-    for (int w = threadIdx.x; w < W; w += blockDim.x) d[w] = u[w];
-  }
+template <int K>
+__global__ void __launch_bounds__(scatter::kMaxThreads)
+multi_scatter_kernel(const scatter::FlatTable t, int S,
+                     const int* __restrict__ rows) {
+  scatter::copy_row<K>(t, S, rows);
 }
 
 }  // namespace
 
 extern "C" int multi_scatter_launch(void* const* dsts, void* const* upds,
                                     const int* widths, int nf, int S,
-                                    const void* rows, int D, void* stream) {
-  if (D <= 0 || nf <= 0) return 0;
-  if (nf > kMaxFields) return (int)cudaErrorInvalidValue;
-  FieldTable table = {};
+                                    const void* rows, int D, int threads,
+                                    int k, void* stream) {
+  if (nf <= 0 || nf > scatter::kMaxFields) return (int)cudaErrorInvalidValue;
+  scatter::FlatTable t = {};
   for (int f = 0; f < nf; ++f) {
-    table.dst[f] = (int*)dsts[f];
-    table.upd[f] = (const int*)upds[f];
-    table.width[f] = widths[f];
+    if (widths[f] < 0) return (int)cudaErrorInvalidValue;
+    t.dst[f] = (int*)dsts[f];
+    t.upd[f] = (const int*)upds[f];
+    t.off[f + 1] = t.off[f] + widths[f];
   }
-  table.n = nf;
-  multi_scatter_kernel<<<D, 128, 0, (cudaStream_t)stream>>>(
-      table, S, (const int*)rows);
-  return (int)cudaGetLastError();
+  t.nf = nf;
+  if (D <= 0 || t.off[nf] == 0) return 0;
+  return scatter::dispatch(threads, k, [&](auto K) {
+    multi_scatter_kernel<decltype(K)::value>
+        <<<D, threads, 0, (cudaStream_t)stream>>>(t, S, (const int*)rows);
+  });
 }

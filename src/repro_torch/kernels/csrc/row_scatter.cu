@@ -3,43 +3,40 @@
 // Replaces the Pallas kernel repro/kernels/delta_scatter.py:
 // snapshot_delta_scatter (the body of snapshot_image_scatter), whose grid
 // walked the dirty rows in order with the row indices scalar-prefetched.
-// Here every dirty row is one thread block; blocks run in any order, which
-// is safe because repeated rows carry identical data (the store pads a
-// delta to a power of two by repeating its last row).
+// Here blocks run in any order, which is safe because repeated rows carry
+// identical data (the store pads a delta to a power of two by repeating
+// its last row).
 //
-// Bound: bytes.  The call must read D update rows and write them once:
-// 2 * D * W * 4 bytes over the card's memory rate.  Rows are W 32-bit
-// words (1273 at the default geometry, a 5092-byte stride that is not
-// 16-byte aligned), so each thread moves single words; neighbouring
-// threads touch neighbouring words and the copy stays coalesced.
-//
-// Any 4-byte element type scatters the same way; the wrapper passes raw
-// pointers.  Negative rows wrap Python-style.  The wrapper raises on a row
-// outside [-S, S) before it launches, as the plain version does;
-// the kernel still skips such a row so that no launch writes outside the
-// image.
+// The packed image is the one-field case of the flattened row copy in
+// scatter_rows.cuh, which holds the design and the bound: one block a
+// row, each thread issues all K loads of its chunk of the row before its
+// stores, and a row equal to its predecessor is skipped.  At the default
+// geometry (W = 1273 words) K = 8 and T = 160 cover a row in one chunk.
 
-#include <cuda_runtime.h>
+#include "scatter_rows.cuh"
 
 namespace {
 
-__global__ void row_scatter_kernel(int* __restrict__ dst, int S, int W,
-                                   const int* __restrict__ rows,
-                                   const int* __restrict__ upd) {
-  int r = rows[blockIdx.x];
-  if (r < 0) r += S;
-  if (r < 0 || r >= S) return;
-  int* d = dst + (size_t)r * W;
-  const int* u = upd + (size_t)blockIdx.x * W;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) d[w] = u[w];
+template <int K>
+__global__ void __launch_bounds__(scatter::kMaxThreads)
+row_scatter_kernel(const scatter::FlatTable t, int S,
+                   const int* __restrict__ rows) {
+  scatter::copy_row<K>(t, S, rows);
 }
 
 }  // namespace
 
 extern "C" int row_scatter_launch(void* dst, int S, int W, const void* rows,
-                                  const void* upd, int D, void* stream) {
-  if (D <= 0) return 0;
-  row_scatter_kernel<<<D, 256, 0, (cudaStream_t)stream>>>(
-      (int*)dst, S, W, (const int*)rows, (const int*)upd);
-  return (int)cudaGetLastError();
+                                  const void* upd, int D, int threads, int k,
+                                  void* stream) {
+  if (D <= 0 || W <= 0) return 0;
+  scatter::FlatTable t = {};
+  t.dst[0] = (int*)dst;
+  t.upd[0] = (const int*)upd;
+  t.off[1] = W;
+  t.nf = 1;
+  return scatter::dispatch(threads, k, [&](auto K) {
+    row_scatter_kernel<decltype(K)::value>
+        <<<D, threads, 0, (cudaStream_t)stream>>>(t, S, (const int*)rows);
+  });
 }

@@ -14,6 +14,11 @@ Legacy layout: the snapshot keeps one tensor per node field, so a delta
 ships 24 [D, W_f] blocks; ``csrc/multi_scatter.cu`` scatters the dirty
 rows of every field in one launch, the field table passed by value.
 
+Both kernels run one copy over the flattened row, the fields
+concatenated in schema order (``csrc/scatter_rows.cuh``);
+``scatter_plan`` sizes its blocks, and ``ref.flat_scatter_mirror`` walks
+the same assignment on the CPU.
+
 Log replay: a follower replica applies one epoch's marshalled wire
 entries to its own image (``csrc/log_replay.cu``): each entry moves only
 its ~(key_words + val_words + 6) words into its leaf's log slot, instead
@@ -22,6 +27,9 @@ of a whole image row per dirty node.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import itertools
 
 import torch
 
@@ -29,9 +37,10 @@ from . import build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "row_scatter": [_P, _I, _I, _P, _P, _I, _P],
-    # dst pointers, upd pointers, widths, nf, S, rows, D, stream
-    "multi_scatter": [_P, _P, _P, _I, _I, _P, _I, _P],
+    # dst, S, W, rows, upd, D, threads, K, stream
+    "row_scatter": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
+    # dst pointers, upd pointers, widths, nf, S, rows, D, threads, K, stream
+    "multi_scatter": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
     # image, S, IW, rows, slots, entries, D, EW, 11 layout offsets, stream
     "log_replay": [_P, _I, _I, _P, _P, _P, _I, _I] + [_I] * 11 + [_P],
 }
@@ -39,6 +48,56 @@ _ARGTYPES = {
 
 def _launcher(name: str):
     return build.launcher(name, f"{name}_launch", _ARGTYPES[name])
+
+
+#: fields one multi-scatter launch takes (csrc/scatter_rows.cuh kMaxFields)
+MAX_FIELDS = 32
+#: threads a block of the row copy may have (scatter_rows.cuh kMaxThreads):
+#: 8 blocks of up to 256 fill a streaming multiprocessor's 2,048 threads
+MAX_THREADS = 256
+#: the words a thread loads before it stores, one kernel instance each:
+#: what the stores' rows need (345, 921 and 1,273 words take 2, 4 and 8)
+K_CHOICES = (2, 4, 8)
+#: the register budget of a thread's loaded words
+REG_BYTES = 4 * K_CHOICES[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterPlan:
+    """How the row copy of ``csrc/scatter_rows.cuh`` covers D dirty rows
+    of flattened width W = ``offsets[-1]``: ``grid`` = D blocks of
+    ``threads`` threads, one row a block, its W words in ``chunks`` chunks
+    of ``k * threads``; in a chunk, thread t loads words
+    ``k' * threads + t`` for every k' < k, then stores them."""
+    offsets: tuple
+    threads: int
+    k: int
+    grid: int
+    chunks: int
+    reg_bytes: int = REG_BYTES
+
+
+@functools.lru_cache(maxsize=64)
+def scatter_plan(widths: tuple, D: int) -> ScatterPlan:
+    """The row copy's plan for fields of these widths (in 32-bit words,
+    schema order) and D dirty rows.  K is the smallest choice that covers
+    a row with at most ``MAX_THREADS`` threads (a row wider than 8 * 256
+    words takes several chunks); threads are a whole number of warps.  At
+    the default geometry (W = 1273): K = 8, 160 threads."""
+    widths = tuple(int(w) for w in widths)
+    if not 1 <= len(widths) <= MAX_FIELDS or min(widths) < 0:
+        raise ValueError(f"need 1 to {MAX_FIELDS} fields of width >= 0, "
+                         f"got {widths}")
+    if D < 0:
+        raise ValueError(f"D must be >= 0, got {D}")
+    offsets = tuple(itertools.accumulate(widths, initial=0))
+    W = offsets[-1]
+    if W < 1:
+        raise ValueError("the fields hold no word")
+    k = next((k for k in K_CHOICES if -(-W // k) <= MAX_THREADS),
+             K_CHOICES[-1])
+    threads = min(MAX_THREADS, 32 * -(-W // (32 * k)))
+    return ScatterPlan(offsets, threads, k, D, -(-W // (k * threads)))
 
 
 def snapshot_delta_scatter(dst: torch.Tensor, rows: torch.Tensor,
@@ -54,18 +113,21 @@ def snapshot_delta_scatter(dst: torch.Tensor, rows: torch.Tensor,
     build.check_tensor(upd, "upd", 2, dst.device)
     if rows.dtype != torch.int32 or upd.dtype != dst.dtype:
         raise ValueError("rows must be int32 and upd must match dst's dtype")
+    if dst.element_size() != 4:
+        raise ValueError(f"the scatter moves 4-byte words, got {dst.dtype}")
     S, W = dst.shape
     D = rows.shape[0]
     if upd.shape != (D, W):
         raise ValueError(f"upd must be [{D}, {W}], got {tuple(upd.shape)}")
-    if D == 0:
+    if D == 0 or W == 0:
         return dst
     ref.check_rows(rows, S)        # as the plain version, before writing
+    plan = scatter_plan((W,), D)
     launch = _launcher("row_scatter")
     with torch.cuda.device(dst.device):   # the launcher uses the current device
         stream = torch.cuda.current_stream(dst.device).cuda_stream
         err = launch(dst.data_ptr(), S, W, rows.data_ptr(), upd.data_ptr(),
-                     D, stream)
+                     D, plan.threads, plan.k, stream)
     build.check(err, "row_scatter")
     build.LAUNCHES["row_scatter"] += 1
     return dst
@@ -76,10 +138,6 @@ def snapshot_image_scatter(image: torch.Tensor, rows: torch.Tensor,
     """image[rows[i], :] = upd[i, :] — ONE contiguous image-row copy per
     dirty node (the packed layout's whole sync), in place on CUDA."""
     return snapshot_delta_scatter(image, rows, upd)
-
-
-#: fields one multi-scatter launch takes (csrc/multi_scatter.cu kMaxFields)
-MAX_FIELDS = 32
 
 
 def snapshot_multi_scatter(dsts, rows: torch.Tensor, upd) -> tuple:
@@ -104,15 +162,18 @@ def snapshot_multi_scatter(dsts, rows: torch.Tensor, upd) -> tuple:
     for f, (d, u) in enumerate(zip(dsts, upd)):
         build.check_tensor(d, f"dsts[{f}]", 2, rows.device)
         build.check_tensor(u, f"upd[{f}]", 2, rows.device)
-        if u.dtype != d.dtype:
-            raise ValueError(f"upd[{f}] is {u.dtype}, its field {d.dtype}")
+        if u.dtype != d.dtype or d.element_size() != 4:
+            raise ValueError(f"upd[{f}] is {u.dtype}, its field {d.dtype}: "
+                             f"need one 4-byte dtype")
         if d.shape[0] != S or u.shape != (D, d.shape[1]):
             raise ValueError(f"field {f}: need dst [{S}, W] and upd "
                              f"[{D}, W], got {tuple(d.shape)} and "
                              f"{tuple(u.shape)}")
-    if D == 0:
+    widths = tuple(d.shape[1] for d in dsts)
+    if D == 0 or sum(widths) == 0:
         return dsts
     ref.check_rows(rows, S)        # as the plain version, before writing
+    plan = scatter_plan(widths, D)
     launch = _launcher("multi_scatter")
     ptrs = ctypes.c_void_p * nf
     with torch.cuda.device(rows.device):
@@ -120,8 +181,8 @@ def snapshot_multi_scatter(dsts, rows: torch.Tensor, upd) -> tuple:
         err = launch(
             ptrs(*(d.data_ptr() for d in dsts)),
             ptrs(*(u.data_ptr() for u in upd)),
-            (ctypes.c_int * nf)(*(d.shape[1] for d in dsts)), nf, S,
-            rows.data_ptr(), D, stream)
+            (ctypes.c_int * nf)(*widths), nf, S, rows.data_ptr(), D,
+            plan.threads, plan.k, stream)
     build.check(err, "multi_scatter")
     build.LAUNCHES["multi_scatter"] += 1
     return dsts

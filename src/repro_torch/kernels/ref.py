@@ -9,8 +9,9 @@ The kernel wrappers (``key_search.py``, ``leaf_merge.py``,
 ``paged_attention.py`` within a tolerance (its sums run in another
 order), and ``ops.py`` runs them for tensors on the CPU.
 ``paged_attention_split_ref`` mirrors the kernel's split into spans and
-its combining pass; the tests hold it to the reference, nothing on a
-main path runs it.
+its combining pass, ``flat_scatter_mirror`` the scatters' flattened row
+copy; the tests hold them to the plain versions, nothing on a main path
+runs them.
 """
 from __future__ import annotations
 
@@ -113,6 +114,57 @@ def snapshot_multi_scatter_ref(dsts, rows: torch.Tensor, upd):
     idx = rows.long()
     for d, u in zip(dsts, upd):
         d[idx] = u
+    return dsts
+
+
+def flat_scatter_words(plan):
+    """The assignment of the delta-sync row copy (``csrc/scatter_rows.cuh``)
+    under a ``delta_scatter.ScatterPlan``: for every (block, chunk, k,
+    thread) slot, the dirty row ``i`` (the block), the field ``f`` and the
+    word ``j`` of that field it moves, and ``live``, whether the slot
+    holds a word (its flattened word lies in the row).  Each is a [grid,
+    chunks, k, threads] int64 (``live`` bool) tensor.  The field comes
+    from the kernel's branch-free search of the prefix offsets, padded
+    past the last field as in shared memory."""
+    K, T = plan.k, plan.threads
+    W = plan.offsets[-1]
+    i, c, k, t = torch.meshgrid(
+        torch.arange(plan.grid), torch.arange(plan.chunks),
+        torch.arange(K), torch.arange(T), indexing="ij")
+    w = c * K * T + k * T + t             # the word within the row
+    live = w < W
+    off = torch.full((33,), 2 ** 31 - 1, dtype=torch.int64)  # as s_off
+    off[:len(plan.offsets)] = torch.tensor(plan.offsets)
+    f = torch.zeros_like(w)
+    for step in (16, 8, 4, 2, 1):
+        f = torch.where(off[f + step] <= w, f + step, f)
+    return i, f, w - off[f], live
+
+
+def flat_scatter_mirror(dsts, rows: torch.Tensor, upd, plan):
+    """The delta-sync row copy as its kernel performs it, on the CPU, in
+    place: every slot of ``flat_scatter_words`` copies its word, except
+    where its block's table marks the row skipped: a row outside [-S, S)
+    (the kernel's last guard; the wrapper raises first) or a row equal,
+    after wrapping, to its predecessor in ``rows`` (a repeat, whose data
+    the first row of its run writes).  ``dsts`` [S, W_f] and ``upd``
+    [D, W_f] of 4-byte elements, fields in ``plan.offsets`` order, a plan
+    of D rows.  Returns ``dsts`` as a tuple."""
+    dsts, upd = tuple(dsts), tuple(upd)
+    S = dsts[0].shape[0]
+    r = rows.long()
+    r = torch.where(r < 0, r + S, r)
+    r = torch.where((r >= 0) & (r < S), r, -1)
+    prev = torch.cat([torch.full((1,), -2), r[:-1]])
+    target = torch.where(r == prev, -1, r)
+    i, f, j, live = flat_scatter_words(plan)
+    tgt = target[i]
+    write = live & (tgt >= 0)
+    for fi, (d, u) in enumerate(zip(dsts, upd)):
+        sel = write & (f == fi)
+        wf = d.shape[1]
+        d.view(torch.int32).view(-1)[tgt[sel] * wf + j[sel]] = \
+            u.view(torch.int32).reshape(-1)[i[sel] * wf + j[sel]]
     return dsts
 
 

@@ -449,7 +449,7 @@ def test_multi_scatter_kernel_matches_plain(cuda, seed, d):
 
 
 @pytest.mark.parametrize("case", ["row_high", "row_low", "d_mismatch",
-                                  "dtype_mismatch", "s_mismatch"])
+                                  "dtype_mismatch", "s_mismatch", "bf16"])
 def test_multi_scatter_kernel_rejects_bad_input(cuda, case):
     """Like the plain version, the wrapper raises on a row outside
     [-S, S); it also refuses mismatched D, S or dtypes; nothing is
@@ -463,6 +463,8 @@ def test_multi_scatter_kernel_rejects_bad_input(cuda, case):
         upd[5] = upd[5][:-1]
     elif case == "dtype_mismatch":
         upd[0] = upd[0].view(torch.float32)
+    elif case == "bf16":             # 2-byte elements: not the kernel's words
+        dsts[5], upd[5] = (t.view(torch.bfloat16) for t in (dsts[5], upd[5]))
     else:
         dsts[7] = dsts[7][:-1]
     dev = [t.to(cuda) for t in dsts]
@@ -472,6 +474,84 @@ def test_multi_scatter_kernel_rejects_bad_input(cuda, case):
             dev, rows.to(cuda), [u.to(cuda) for u in upd])
     for a, b in zip(dev, dsts):
         assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+# fields of the flattened row copy (csrc/scatter_rows.cuh): the legacy
+# layout, the packed image, and the plan's edges
+SCATTER_WIDTHS = {
+    "legacy": tuple(sl.words for sl in NodeImageLayout.for_config(
+        HoneycombConfig()).slots.values()),
+    "packed": (1273,),
+    "ragged": (1000,),        # not a whole number of the block's threads
+    "wide": (5000,),          # more than K * threads words: three chunks
+    "narrow": (3, 4),         # narrower than a warp
+    "fields32": (1, 0, 5, 33, 2, 1, 64, 7, 1, 1, 16, 3, 0, 8, 9, 1,
+                 40, 1, 2, 12, 1, 6, 1, 20, 1, 4, 1, 2, 50, 1, 3, 11),
+}
+# the delta's row lists: pad repeats at the end, a run of repeats inside,
+# repeats that are not neighbours, negative rows (pad repeats alternating
+# a row's two spellings), one row
+SCATTER_ROWS = ("suffix", "interior", "scattered", "negative", "single")
+
+
+def _flat_case(widths, kind, seed=0, S=64, d=24):
+    """numpy inputs of one delta over fields of these widths: [S, W_f]
+    int32 destinations, [D] int32 rows and [D, W_f] int32 updates, the
+    rows of ``kind`` (``SCATTER_ROWS``); a repeated row repeats its
+    data."""
+    rng = np.random.default_rng(seed)
+    d = 1 if kind == "single" else d
+    distinct = rng.permutation(S)[:d].astype(np.int32)
+    idx = list(range(d))
+    if kind == "suffix":
+        idx += [d - 1] * 8
+    elif kind == "interior":
+        idx = idx[:11] + [10] * 5 + idx[11:]
+    elif kind == "scattered":
+        idx.insert(7, 3)
+        idx.insert(15, 3)
+    elif kind == "negative":
+        distinct[::3] -= S
+        idx += [d - 1] * 4
+    idx = np.asarray(idx)
+    rows = distinct[idx]
+    if kind == "negative":                # the last row, both spellings
+        last = int(distinct[-1]) % S
+        rows[d:] = [last - S * (n % 2) for n in range(len(idx) - d)]
+    i32 = np.iinfo(np.int32)
+    dsts = [rng.integers(i32.min, i32.max, (S, w), dtype=np.int32,
+                         endpoint=True) for w in widths]
+    upd = [rng.integers(i32.min, i32.max, (d, w), dtype=np.int32,
+                        endpoint=True)[idx] for w in widths]
+    return dsts, rows.astype(np.int32), upd
+
+
+@pytest.mark.parametrize("kind", SCATTER_ROWS)
+@pytest.mark.parametrize("shape", sorted(SCATTER_WIDTHS))
+def test_flat_scatter_kernels_at_plan_edges(cuda, shape, kind):
+    """Both scatters over the flattened row at the plan's edges equal their
+    plain versions on the card, one launch a call: the multi-field kernel
+    over the fields, the row scatter over the same fields as one packed
+    row."""
+    widths = SCATTER_WIDTHS[shape]
+    dsts, rows, upd = _flat_case(widths, kind)
+    rows_d = torch.from_numpy(rows).to(cuda)
+    fields = [torch.from_numpy(a).to(cuda) for a in dsts]
+    blocks = [torch.from_numpy(a).to(cuda) for a in upd]
+    want = ref.snapshot_multi_scatter_ref([t.clone() for t in fields],
+                                          rows_d, blocks)
+    build.reset_launches()
+    got = delta_scatter.snapshot_multi_scatter(fields, rows_d, blocks)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["multi_scatter"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    image = torch.from_numpy(np.concatenate(dsts, axis=1)).to(cuda)
+    packed = torch.from_numpy(np.concatenate(upd, axis=1)).to(cuda)
+    want = ref.snapshot_image_scatter_ref(image.clone(), rows_d, packed)
+    got = delta_scatter.snapshot_image_scatter(image, rows_d, packed)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["row_scatter"] == 1
+    assert torch.equal(want, got)
 
 
 @pytest.mark.parametrize("pipeline", ["serial", "pipelined"])

@@ -22,7 +22,9 @@ after:
    must equal their plain versions, the read path's shortcut floor and its
    two-stage segment floor; the leaf-merge kernel orders every leaf row
    of the image and must equal its plain version and the stable order of
-   the read path's own leaf ranks.
+   the read path's own leaf ranks.  The image-mode search is also held
+   to its plain version on synthetic rows: a block that needs its chunk
+   loop and key widths of its generic instance.
 2. The range-sharded, replicated ``ShardedHoneycombStore``: 2 shards x 3
    replicas (round-robin reads, the log-shipped follower feed, a flat
    relay topology) over 2^18 keys.  Update epochs replay each epoch's
@@ -58,7 +60,10 @@ after:
    attention, must agree with that forward.
 
 Then each kernel is held against its plain PyTorch version on the card at
-the shapes its path gave it; the paged-attention kernel also at the
+the shapes its path gave it; the log replay also at D = 1, 32, 1,024 and
+4,096 entries, and with a bad row and a bad slot (each must raise and
+write nothing; the call right after must be exact), and it is timed at
+the path's usual D and at D = 1,024; the paged-attention kernel also at the
 attention shapes of gemma2-27b (32 heads, 16 KV heads, soft-capping, a
 4,096-position window) and gemma3-12b (head dim 256, a 1,024-position
 window) on seeded synthetic pools, and its span plan is printed.  Each
@@ -856,6 +861,24 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
           f"in all {N + L} positions; {merge_s * 1e3:.3f} ms host clock")
     print(f"  launches {launches}")
 
+    # (g) the image mode at a block that needs the chunk loop and at key
+    # widths of the generic instance, on synthetic rows (not counted)
+    gen = torch.Generator(device="cpu").manual_seed(args.seed + 5)
+    wild = []
+    for n, kw in WILD_IMAGE:
+        q, qlen, rows, mode = (x.to(dev) if torch.is_tensor(x) else x
+                               for x in wild_image_rows(BATCH, n, kw, gen))
+        same("key_search_image", ref.key_search_image_ref(
+            q, qlen, rows, **mode), key_search.key_search_image(
+                q, qlen, rows, **mode), f"{n} keys of {kw} lanes vs plain")
+        wild.append(f"{n}x{kw} in {key_search.image_plan(n, kw).chunks} "
+                    f"chunk(s)")
+    check(any(key_search.image_plan(n, kw).chunks > 1
+              for n, kw in WILD_IMAGE), "no synthetic block takes chunks")
+    print(f"key_search_image on synthetic rows (lanes over the whole u32 "
+          f"range, ties decided by length, counts of 0, above n_keys and "
+          f"negative): {', '.join(wild)}; each == its plain version")
+
     # ---- timings at the path's shapes (these launches are not counted) ---
     def image_bytes(mode):
         """Bytes an image-mode search of the timed batches must move, per
@@ -948,6 +971,37 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
                 "library_ms": None, "argsort_ms": argsort_ms,
                 "leaves": n_leaves})
     return out, launches
+
+
+#: (n_keys, key_words) of the synthetic image-mode checks: the stores'
+#: width with a block that needs two chunks, then widths of the kernel's
+#: generic instance, one of them chunked
+WILD_IMAGE = ((300, 8), (40, 3), (700, 3))
+
+
+def wild_image_rows(B: int, N: int, KW: int, gen) -> tuple:
+    """Synthetic image rows holding one candidate block (count word 2,
+    keys from word 5, lengths after them): lanes over the whole u32 range,
+    most candidates sharing their query's lanes up to a random lane (so
+    high bits and ties decided by length both occur), counts of 0, above
+    ``N``, with the top bit set and in between.  Returns (q, qlen, rows,
+    the ``key_search_image`` keywords), on the CPU."""
+    koff, loff, coff = 5, 5 + N * KW, 2
+    word = dict(generator=gen, dtype=torch.int32)
+    rows = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, loff + N + 7), **word)
+    q = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, KW), **word)
+    qlen = torch.randint(0, 4 * KW + 1, (B,), **word)
+    keys = rows[:, koff:loff].view(B, N, KW)
+    cut = torch.randint(0, KW + 1, (B, N, 1), generator=gen)
+    share = (torch.arange(KW) < cut) \
+        & (torch.rand(B, N, 1, generator=gen) < 0.7)
+    keys.copy_(torch.where(share, q[:, None, :], keys))
+    rows[:, loff:loff + N] = torch.randint(0, 4 * KW + 1, (B, N), **word)
+    count = torch.randint(0, N + 1, (B,), **word)
+    count[:4] = torch.tensor([0, N + 5, -2 ** 31 + 3, -1])
+    rows[:, coff] = count
+    return q, qlen, rows, dict(keys_off=koff, lens_off=loff, count_off=coff,
+                               n_keys=N, key_words=KW)
 
 
 def replay_case(S: int, d: int, offs, layout, gen) -> tuple:
@@ -1334,8 +1388,8 @@ def replicated_path(args, dev, flush):
     base = groups[0].followers[0].snapshot.image
     S, IW = base.shape
     gen_t = torch.Generator(device="cpu").manual_seed(args.seed)
-    err = 0
-    for d in (29, 1000):
+    err, sizes = 0, []
+    for d in (1, 29, 1000, 4000):
         rows, slots, entries = (x.to(dev) for x in
                                 replay_case(S, d, offs, layout, gen_t))
         img = base.clone()
@@ -1345,27 +1399,53 @@ def replicated_path(args, dev, flush):
         got = delta_scatter.log_replay_scatter(img, rows, slots, entries,
                                                offs=offs)
         e = max_abs_err([want], [got])
-        check(e == 0 and int(got[7, offs.nlog]) == 3,
+        check(e == 0 and int(got[7, offs.nlog])
+              == int(slots[rows == 7].max()) + 1,
               f"log_replay D={len(rows)}: kernel differs from plain "
               f"(max abs err {e})")
         err = max(err, e)
+        sizes.append(len(rows))
+    # a bad row and a bad slot raise and write nothing, with the pairs held
+    # in registers (D = 4) and walked (D = 1024); a good call right after
+    # is exact
+    for d, at in ((3, 2), (1000, 900)):
+        rows, slots, entries = (x.to(dev) for x in
+                                replay_case(S, d, offs, layout, gen_t))
+        img = base.clone()
+        pos = torch.tensor([at], device=dev)
+        for what, bad_rows, bad_slots in (
+                ("row", rows.clone().index_fill_(0, pos, S), slots),
+                ("slot", rows, slots.clone().index_fill_(0, pos,
+                                                         offs.log_cap))):
+            try:
+                delta_scatter.log_replay_scatter(img, bad_rows, bad_slots,
+                                                 entries, offs=offs)
+                raised = False
+            except IndexError:
+                raised = True
+            check(raised and torch.equal(img, base),
+                  f"log_replay D={len(rows)} with a bad {what}: raised "
+                  f"{raised}, image "
+                  f"{'unchanged' if torch.equal(img, base) else 'written'}")
+        want = ref.log_replay_scatter_ref(base.clone(), rows, slots, entries,
+                                          offs=offs)
+        got = delta_scatter.log_replay_scatter(img, rows, slots, entries,
+                                               offs=offs)
+        check(torch.equal(want, got), f"log_replay D={len(rows)} after a "
+              f"rejected call differs from its plain version")
     all_sizes = [d for _, _, _, ds in epochs for d in ds]
     D = statistics.mode(all_sizes)
     print(f"log_replay: equals its plain version exactly (tolerance 0) at "
-          f"[{S}, {IW}] for D = 32 and 1024 (several entries per row, an "
-          f"old nlog above the new slots); the main path replayed D = "
+          f"[{S}, {IW}] for D = {sizes} (several entries per row, an old "
+          f"nlog above the new slots); a bad row and a bad slot raise "
+          f"IndexError and write nothing at D = 4 and 1024, the call right "
+          f"after is exact; "
+          f"the main path replayed D = "
           f"{dict(sorted(collections.Counter(all_sizes).items()))} "
           f"(padded entries: launches)")
-    cases = [tuple(x.to(dev) for x in replay_case(S, max(D - 1, 1), offs,
-                                                  layout, gen_t))
-             for _ in range(ROTATE)]
-    work = base.clone()
-    calls = [lambda c=c: delta_scatter.log_replay_scatter(
-        work, *c, offs=offs) for c in cases]
-    ms = device_ms(calls, 64, "log_replay_kernel", flush)
-    wrapper_ms = cuda_ms(calls, 200)
-    plain_ms = cuda_ms([lambda c=c: ref.log_replay_scatter_ref(
-        work, *c, offs=offs) for c in cases], 50)
+    cases, work, t = replay_timing(base, D, offs, layout, gen_t, flush)
+    _, _, t_1k = replay_timing(base, 1024, offs, layout, gen_t, flush)
+    ms, wrapper_ms, plain_ms = t["ms"], t["wrapper_ms"], t["plain_ms"]
     EW = layout.log_entry_words
     # the field words' flat indices, precomputed: index_put_ covers the
     # field writes only, not the per-row nlog reduction
@@ -1385,6 +1465,7 @@ def replicated_path(args, dev, flush):
         [lambda p=p: flat.index_put_((p[0],), p[1]) for p in puts], 64,
         "index_elementwise_kernel", flush)
     bound_ms = D * (EW * 4 * 2 + 4 + 8) / HBM_BYTES_PER_S * 1e3
+    bound_1k = 1024 * (EW * 4 * 2 + 4 + 8) / HBM_BYTES_PER_S * 1e3
     clone_ms = image_clone_ms(base)
     print(f"log_replay: kernel {ms:.4f} ms device time for D = {D} entries "
           f"(L2 flushed), {wrapper_ms:.4f} ms per call through the wrapper "
@@ -1394,13 +1475,55 @@ def replicated_path(args, dev, flush):
           f"time; the follower image clone before each replay ({S * IW * 4} "
           f"B each way) {clone_ms:.4f} ms per clone (CUDA events over 32 back "
           f"to back)")
+    print(f"log_replay at D = 1024 (an epoch of about a thousand writes on "
+          f"a shard): kernel {t_1k['ms']:.4f} ms device time, "
+          f"{t_1k['wrapper_ms']:.4f} ms through the wrapper (plain "
+          f"{t_1k['plain_ms']:.4f} ms), bound {bound_1k:.9f} ms; with each "
+          f"call's rows and slots read just before it: "
+          f"{t['ms_pairs_read']:.4f} ms at D = {D}, "
+          f"{t_1k['ms_pairs_read']:.4f} ms at D = 1024")
     return ({"name": "log_replay", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/log_replay.cu",
              "replaces": "src/repro/kernels/delta_scatter.py:127",
              "launches": launches["log_replay"], "max_abs_err": err,
              "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-             "index_put_ms": yard_ms, "D": D}, launches, scatter)
+             "index_put_ms": yard_ms, "D": D,
+             "ms_pairs_read": t["ms_pairs_read"], "ms_D1024": t_1k["ms"],
+             "ms_pairs_read_D1024": t_1k["ms_pairs_read"],
+             "wrapper_ms_D1024": t_1k["wrapper_ms"],
+             "plain_ms_D1024": t_1k["plain_ms"],
+             "bound_ms_D1024": bound_1k}, launches, scatter)
+
+
+def replay_timing(base: torch.Tensor, D: int, offs, layout, gen,
+                  flush: torch.Tensor):
+    """The log-replay kernel at D entries (16 cases of D - 1 records each,
+    padded as the feed pads them) replayed into a clone of ``base``: its
+    device time (L2 flushed), its device time when each call's rows and
+    slots were read just before it (as a wrapper that checks their range
+    on the host does), its time through the wrapper back to back and the
+    plain version's.  It calls only the replay's wrapper and plain
+    version, so it times another tree's kernel too, when that tree's
+    ``repro_torch`` is imported first.  Returns (cases, the clone, a dict
+    of the four times)."""
+    from repro_torch.kernels import delta_scatter, ref
+    cases = [tuple(x.to(base.device) for x in replay_case(
+        base.shape[0], max(D - 1, 1), offs, layout, gen))
+        for _ in range(ROTATE)]
+    work = base.clone()
+    calls = [lambda c=c: delta_scatter.log_replay_scatter(
+        work, *c, offs=offs) for c in cases]
+    read_first = [lambda c=c: (torch.aminmax(c[0]), torch.aminmax(c[1]),
+                               delta_scatter.log_replay_scatter(
+                                   work, *c, offs=offs)) for c in cases]
+    return cases, work, {
+        "ms": device_ms(calls, 64, "log_replay_kernel", flush),
+        "ms_pairs_read": device_ms(read_first, 64, "log_replay_kernel",
+                                   flush),
+        "wrapper_ms": cuda_ms(calls, 200),
+        "plain_ms": cuda_ms([lambda c=c: ref.log_replay_scatter_ref(
+            work, *c, offs=offs) for c in cases], 50)}
 
 
 def mixed_ops(rng, n: int, n_keys: int, gen: int) -> list:

@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <cstring>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -134,16 +136,6 @@ __device__ __forceinline__ int warp_max(int v) {
 __device__ __forceinline__ int wrap(int i, int n) {
   if (i < 0) i += n;
   return min(max(i, 0), n - 1);
-}
-
-__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Row r of the combined view: heap rows [0, S), cache rows [S, S + C); r

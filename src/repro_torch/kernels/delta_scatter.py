@@ -22,7 +22,10 @@ the same assignment on the CPU.
 Log replay: a follower replica applies one epoch's marshalled wire
 entries to its own image (``csrc/log_replay.cu``): each entry moves only
 its ~(key_words + val_words + 6) words into its leaf's log slot, instead
-of a whole image row per dirty node.
+of a whole image row per dirty node.  A block takes ``replay_plan``'s
+entries and reads every (row, slot) pair once; the kernel also makes the
+range check and writes its verdict to a flag, which the wrapper reads
+back once after the launch (``ref.replay_verdict`` mirrors it).
 """
 from __future__ import annotations
 
@@ -41,8 +44,10 @@ _ARGTYPES = {
     "row_scatter": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
     # dst pointers, upd pointers, widths, nf, S, rows, D, threads, K, stream
     "multi_scatter": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
-    # image, S, IW, rows, slots, entries, D, EW, 11 layout offsets, stream
-    "log_replay": [_P, _I, _I, _P, _P, _P, _I, _I] + [_I] * 11 + [_P],
+    # image, S, IW, rows, slots, entries, D, EW, log_cap, E, threads, flag,
+    # 11 layout offsets, stream
+    "log_replay": [_P, _I, _I, _P, _P, _P] + [_I] * 5 + [_P] + [_I] * 11
+    + [_P],
 }
 
 
@@ -98,6 +103,66 @@ def scatter_plan(widths: tuple, D: int) -> ScatterPlan:
              K_CHOICES[-1])
     threads = min(MAX_THREADS, 32 * -(-W // (32 * k)))
     return ScatterPlan(offsets, threads, k, D, -(-W // (k * threads)))
+
+
+#: entries one block of the log replay takes (csrc/log_replay.cu kEntries)
+ENTRIES_PER_BLOCK = 8
+#: the (row, slot) pairs a thread of the log replay loads before it compares
+#: any (log_replay.cu kPairsPerThread)
+REPLAY_PAIRS_PER_THREAD = 4
+#: threads a block of the log replay may have (log_replay.cu kMaxThreads)
+REPLAY_MAX_THREADS = 512
+#: shared memory a block may take without opt-in (log_replay.cu
+#: kMaxSmemBytes)
+REPLAY_SMEM_BYTES = 48 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplayPlan:
+    """How the log replay (``csrc/log_replay.cu``) covers D entries of EW
+    words: ``grid`` blocks of ``threads`` threads, block b taking entries
+    [b * entries, min((b + 1) * entries, D)).  Where ``held`` (D at most
+    ``ENTRIES_PER_BLOCK``) every block holds all D pairs in registers and
+    takes one entry; else every block walks all D pairs in ``chunks``
+    chunks of ``pair_chunk`` = ``k * threads``, thread t taking pairs
+    ``c * pair_chunk + k' * threads + t`` for k' < k.  ``smem_bytes`` is
+    a block's shared memory: its records and each warp's maxima for its
+    entries."""
+    D: int
+    held: bool
+    entries: int
+    threads: int
+    grid: int
+    k: int
+    pair_chunk: int
+    chunks: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def replay_plan(D: int, EW: int) -> ReplayPlan:
+    """The log replay's plan for D entries of EW words: one entry a block
+    while D fits a thread's registers (the record stores of different
+    entries then issue from different SMs), else ``ENTRIES_PER_BLOCK`` a
+    block (the last may hold fewer); threads enough for
+    ``REPLAY_PAIRS_PER_THREAD`` pairs each and for one word each of a
+    block's records (a thread's stores issue one after another, each
+    waiting on its address), whole warps, from 32 to
+    ``REPLAY_MAX_THREADS``.  At the default geometry (EW = 18): D = 4
+    takes 4 blocks of 32 threads, D = 1,024 128 blocks of 256.  Raises
+    ValueError for records too wide for the block's shared memory."""
+    if D < 1 or EW < 1:
+        raise ValueError(f"need D >= 1 and EW >= 1, got {D} and {EW}")
+    K, held = REPLAY_PAIRS_PER_THREAD, D <= ENTRIES_PER_BLOCK
+    E = 1 if held else ENTRIES_PER_BLOCK
+    need = max(-(-D // K), E * EW)
+    threads = min(REPLAY_MAX_THREADS, max(32, 32 * -(-need // 32)))
+    smem = 4 * ENTRIES_PER_BLOCK * (EW + threads // 32)
+    if smem > REPLAY_SMEM_BYTES:
+        raise ValueError(f"log records of {EW} words do not fit the replay "
+                         f"kernel's shared memory")
+    return ReplayPlan(D, held, E, threads, -(-D // E), K, K * threads,
+                      -(-D // (K * threads)), smem)
 
 
 def snapshot_delta_scatter(dst: torch.Tensor, rows: torch.Tensor,
@@ -200,7 +265,11 @@ def log_replay_scatter(image: torch.Tensor, rows: torch.Tensor,
     entries: [D, key_words + val_words + 6] int32 marshalled records
     offs:    ``core/schema.LogReplayOffsets``
     Each touched row's ``nlog`` becomes its highest ``slots + 1`` in this
-    call.  Returns ``image``."""
+    call.  A row outside [-S, S) or a slot outside [0, log_cap) raises
+    IndexError, as the plain version does, and the image is left as it
+    was: the kernel checks every pair before any block writes, and the
+    wrapper reads its verdict back once, after the launch.  Returns
+    ``image``."""
     build.check_tensor(image, "image", 2)
     for t, name, nd in ((rows, "rows", 1), (slots, "slots", 1),
                         (entries, "entries", 2)):
@@ -219,14 +288,21 @@ def log_replay_scatter(image: torch.Tensor, rows: torch.Tensor,
                          f"fields at {offs}")
     if D == 0:
         return image
-    ref.check_rows(rows, S)        # as the plain version, before writing
-    ref.check_slots(slots, offs.log_cap)
+    plan = replay_plan(D, EW)
+    flag = torch.empty(1, dtype=torch.int32, device=image.device)
     launch = _launcher("log_replay")
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
         err = launch(
             image.data_ptr(), S, IW, rows.data_ptr(), slots.data_ptr(),
-            entries.data_ptr(), D, EW, *offs, stream)
+            entries.data_ptr(), D, EW, offs.log_cap, plan.entries,
+            plan.threads, flag.data_ptr(), *offs, stream)
     build.check(err, "log_replay")
     build.LAUNCHES["log_replay"] += 1
+    verdict = int(flag.item())     # the one read-back; nothing was written
+    if verdict:                    # when it is bad: raise as the plain one
+        ref.check_rows(rows, S)
+        ref.check_slots(slots, offs.log_cap)
+        raise RuntimeError(f"log_replay flagged {verdict} on rows and "
+                           f"slots that the plain checks accept")
     return image

@@ -9,10 +9,16 @@ packed node-image row at the layout's static word offsets
 (``core/schema.NodeImageLayout.offsets``).  Both launch
 ``csrc/key_search.cu``, one warp per request.  Keys are int32 bit views of
 big-endian u32 lanes; the kernel compares them as unsigned words.
+
+The image mode stages each request's count, query and candidate block in
+a warp's shared-memory buffer before it compares; ``image_plan`` sizes
+that buffer, and a block too large for it is searched in chunks.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -23,9 +29,56 @@ _ARGTYPES = {
     # q, qlen, keys, klens, valid, out, B, N, KW, stream
     "key_search_launch": [_P] * 6 + [_I] * 3 + [_P],
     # q, qlen, img, out, B, IW, keys_off, lens_off, count_off, n_keys, KW,
-    # stream
-    "key_search_image_launch": [_P] * 4 + [_I] * 7 + [_P],
+    # warps, chunk, stream
+    "key_search_image_launch": [_P] * 4 + [_I] * 9 + [_P],
 }
+
+#: warps (requests) per block of the image-mode kernel; the kernel takes
+#: 1 to 4 (csrc/key_search.cu kMaxImageWarps)
+IMAGE_WARPS = 2
+#: the words one warp's buffer may hold (key_search.cu kImageWarpWords):
+#: 4 warps of 8 KB stay below the 48 KB a block takes without opt-in
+IMAGE_WARP_WORDS = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class ImagePlan:
+    """How the image-mode kernel stages one request's candidate block of
+    ``n_keys`` keys of ``key_words`` lanes: ``warps`` requests a block,
+    each warp's buffer holds the count word, the query's length and lanes,
+    then ``chunk`` candidates at ``stride`` words apart (the lanes, the
+    length, a pad to an odd stride); the block is staged and compared in
+    ``chunks`` chunks.  ``smem_bytes`` is the block's shared memory."""
+    n_keys: int
+    key_words: int
+    warps: int
+    chunk: int
+    chunks: int
+    stride: int
+    warp_words: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def image_plan(n_keys: int, key_words: int) -> ImagePlan:
+    """The image-mode kernel's plan: the whole block in one chunk where it
+    fits a warp's ``IMAGE_WARP_WORDS``, else the most candidates that fit
+    (the default geometry's sorted block, 64 keys of 8 lanes, takes 586
+    words).  Raises ValueError where not even one candidate fits beside
+    the query (``key_words`` above 1,022)."""
+    if n_keys < 1 or key_words < 1:
+        raise ValueError(f"need n_keys >= 1 and key_words >= 1, got "
+                         f"{n_keys} and {key_words}")
+    stride = (key_words + 1) | 1
+    room = (IMAGE_WARP_WORDS - 2 - key_words) // stride
+    if room < 1:
+        raise ValueError(f"keys of {key_words} lanes do not fit the image "
+                         f"kernel's {IMAGE_WARP_WORDS}-word warp buffer")
+    chunk = min(n_keys, room)
+    warp_words = 2 + key_words + chunk * stride
+    return ImagePlan(n_keys, key_words, IMAGE_WARPS, chunk,
+                     -(-n_keys // chunk), stride, warp_words,
+                     4 * IMAGE_WARPS * warp_words)
 
 
 def key_search(q: torch.Tensor, qlen: torch.Tensor, keys: torch.Tensor,
@@ -91,6 +144,7 @@ def key_search_image(q: torch.Tensor, qlen: torch.Tensor,
                          f"keys_off={keys_off}, lens_off={lens_off}, "
                          f"count_off={count_off} does not fit rows of {IW} "
                          f"words")
+    plan = image_plan(n_keys, key_words)
     out = torch.empty(B, dtype=torch.int32, device=node_img.device)
     if B == 0:
         return out
@@ -100,7 +154,7 @@ def key_search_image(q: torch.Tensor, qlen: torch.Tensor,
                              _ARGTYPES["key_search_image_launch"])(
             q.data_ptr(), qlen.data_ptr(), node_img.data_ptr(),
             out.data_ptr(), B, IW, keys_off, lens_off, count_off, n_keys,
-            key_words, stream)
+            key_words, plan.warps, plan.chunk, stream)
     build.check(err, "key_search_image")
     build.LAUNCHES["key_search_image"] += 1
     return out

@@ -10,8 +10,10 @@ The kernel wrappers (``key_search.py``, ``leaf_merge.py``,
 order), and ``ops.py`` runs them for tensors on the CPU.
 ``paged_attention_split_ref`` mirrors the kernel's split into spans and
 its combining pass, ``flat_scatter_mirror`` the scatters' flattened row
-copy; the tests hold them to the plain versions, nothing on a main path
-runs them.
+copy, ``key_search_image_mirror`` the image-mode search's staged burst
+and chunks, ``replay_pairs`` and ``replay_verdict`` the log replay's walk
+over the pairs and its range check; the tests hold them to the plain
+versions, nothing on a main path runs them.
 """
 from __future__ import annotations
 
@@ -57,6 +59,72 @@ def key_search_image_ref(q: torch.Tensor, qlen: torch.Tensor,
     return key_search_ref(q, qlen, keys, klens, valid)
 
 
+#: sources of the image-mode search's staged words (``image_stage_words``)
+STAGE_COUNT, STAGE_QLEN, STAGE_QUERY, STAGE_KEY, STAGE_LEN = range(5)
+
+
+def image_stage_words(plan):
+    """The burst of the image-mode floor search (``csrc/key_search.cu``)
+    under a ``key_search.ImagePlan``, one warp's share: per chunk, the
+    ``(lane, src, idx, dst)`` int64 tensors of every word it copies.
+    ``src`` is one of the ``STAGE_*`` sources (the count word, the query
+    length, query lane ``idx``, key word ``idx`` of the block, length
+    ``idx``) and ``dst`` its word in the warp's buffer: count, query
+    length, query lanes, then candidate i of the chunk at ``2 + KW + i *
+    stride``, its lanes then its length.  Lane l copies the l-th, (l +
+    32)-th, ... word of each of the kernel's loops."""
+    KW, ST = plan.key_words, plan.stride
+    out = []
+    for c in range(plan.chunks):
+        i0 = c * plan.chunk
+        n = min(plan.chunk, plan.n_keys - i0)
+        w, i = torch.arange(n * KW), torch.arange(n)
+        parts = [(w % 32, torch.full_like(w, STAGE_KEY), i0 * KW + w,
+                  2 + KW + w // KW * ST + w % KW),
+                 (i % 32, torch.full_like(i, STAGE_LEN), i0 + i,
+                  2 + KW + i * ST + KW)]
+        if c == 0:
+            h = torch.arange(2 + KW)
+            src = torch.where(h < 2, h, STAGE_QUERY)
+            parts.insert(0, (h % 32, src, (h - 2).clamp(min=0), h))
+        out.append(tuple(torch.cat(x) for x in zip(*parts)))
+    return out
+
+
+def key_search_image_mirror(q: torch.Tensor, qlen: torch.Tensor,
+                            img: torch.Tensor, plan, *, keys_off: int,
+                            lens_off: int, count_off: int) -> torch.Tensor:
+    """The image-mode floor search as its kernel performs it, on the CPU:
+    each chunk's words copied into a buffer per request as
+    ``image_stage_words`` assigns them (the buffer starts all ones, so a
+    word the burst missed shows), then every candidate of the chunk
+    compared from the buffer and masked with ``i < count``, the largest
+    index kept across chunks.  Returns [B] int32, as
+    ``key_search_image_ref``."""
+    B, KW, ST = img.shape[0], plan.key_words, plan.stride
+    buf = torch.full((B, plan.warp_words), -1, dtype=torch.int32)
+    best = torch.full((B,), -1, dtype=torch.int32)
+    for c, (_, src, idx, dst) in enumerate(image_stage_words(plan)):
+        col = torch.where(src == STAGE_COUNT, count_off,
+                          torch.where(src == STAGE_KEY, keys_off + idx,
+                                      lens_off + idx))
+        from_img = img[:, col.clamp(max=img.shape[1] - 1)]
+        from_q = q[:, idx.clamp(max=KW - 1)]
+        val = torch.where(src == STAGE_QLEN, qlen[:, None],
+                          torch.where(src == STAGE_QUERY, from_q, from_img))
+        buf[:, dst] = val
+        i0 = c * plan.chunk
+        n = min(plan.chunk, plan.n_keys - i0)
+        cand = buf[:, 2 + KW:2 + KW + n * ST].reshape(B, n, ST)
+        live = (torch.arange(i0, i0 + n)[None, :] < buf[:, :1]) \
+            .to(torch.int32)
+        got = key_search_ref(buf[:, 2:2 + KW], buf[:, 1],
+                             cand[:, :, :KW].contiguous(), cand[:, :, KW],
+                             live)
+        best = torch.where(got >= 0, got + i0, best)
+    return best
+
+
 def leaf_merge_ref(nitems: torch.Tensor, nlog: torch.Tensor,
                    backptr: torch.Tensor, hints: torch.Tensor, *,
                    node_cap: int, log_cap: int):
@@ -77,8 +145,9 @@ def leaf_merge_ref(nitems: torch.Tensor, nlog: torch.Tensor,
 
 def check_rows(rows: torch.Tensor, n: int) -> None:
     """Raise IndexError unless every row lies in [-n, n) (negative rows
-    wrap Python-style); the scatter and its kernel call it before they
-    write anything."""
+    wrap Python-style); the plain scatters and the row scatters' wrappers
+    call it before they write anything, the log replay's wrapper after
+    its kernel flagged a bad row and wrote nothing."""
     if rows.numel():
         lo, hi = torch.stack(torch.aminmax(rows)).tolist()
         if lo < -n or hi >= n:
@@ -176,6 +245,33 @@ def check_slots(slots: torch.Tensor, log_cap: int) -> None:
         if lo < 0 or hi >= log_cap:
             raise IndexError(
                 f"log slots must lie in [0, {log_cap}), got [{lo}, {hi}]")
+
+
+def replay_verdict(rows: torch.Tensor, slots: torch.Tensor, n: int,
+                   log_cap: int) -> int:
+    """The range verdict the log-replay kernel writes to its flag: bit 0
+    when some row lies outside [-n, n), bit 1 when some slot lies outside
+    [0, log_cap); 0 when ``check_rows`` and ``check_slots`` both pass."""
+    bad_row = bool(((rows < -n) | (rows >= n)).any())
+    bad_slot = bool(((slots < 0) | (slots >= log_cap)).any())
+    return int(bad_row) | int(bad_slot) << 1
+
+
+def replay_pairs(plan):
+    """The pairs every block of the log replay (``csrc/log_replay.cu``)
+    reads under a ``delta_scatter.ReplayPlan``, and whether each lies
+    below D.  A ``held`` plan loads all D pairs into every thread's
+    registers: [D] tensors.  Else the walk over the pairs: for every
+    (chunk, k, thread) slot the pair index ``c * pair_chunk + k * threads
+    + t``, each a [chunks, k, threads] tensor."""
+    if plan.held:
+        i = torch.arange(plan.D)
+        return i, i < plan.D
+    c, k, t = torch.meshgrid(torch.arange(plan.chunks),
+                             torch.arange(plan.k),
+                             torch.arange(plan.threads), indexing="ij")
+    i = c * plan.pair_chunk + k * plan.threads + t
+    return i, i < plan.D
 
 
 def log_replay_scatter_ref(image: torch.Tensor, rows: torch.Tensor,

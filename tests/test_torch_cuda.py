@@ -305,11 +305,11 @@ def test_row_scatter_kernel_rejects_rows_out_of_range(cuda, bad):
     assert torch.equal(want, got) and bool(got[299].eq(1).all())
 
 
-def _replay_case(seed, n_entries, S=300):
+def _replay_case(seed, n_entries, S=300, pad=5):
     """A random image and log entries at SMALL's geometry: up to three
     entries per row at distinct slots, in shuffled order, padded with
-    repeats of the last record; row 7 has an old nlog above every new
-    slot."""
+    ``pad`` repeats of the last record; row 7 has an old nlog above every
+    new slot."""
     layout = NodeImageLayout.for_config(SMALL)
     offs = layout.log_replay_offsets()
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -325,7 +325,6 @@ def _replay_case(seed, n_entries, S=300):
     entries = torch.randint(-2 ** 31, 2 ** 31 - 1,
                             (n_entries, layout.log_entry_words), generator=g,
                             dtype=torch.int32)
-    pad = 5
     rows = torch.cat([rows, rows[-1:].expand(pad)])
     slots = torch.cat([slots, slots[-1:].expand(pad)])
     entries = torch.cat([entries, entries[-1:].expand(pad, -1)])
@@ -358,6 +357,61 @@ def test_log_replay_kernel_rejects_bad_rows_and_slots(cuda, row, slot):
     with pytest.raises(IndexError):
         delta_scatter.log_replay_scatter(*dev, offs=offs)
     assert torch.equal(dev[0].cpu(), image)
+
+
+@pytest.mark.parametrize("D", [1, 4, 1024, 4096])
+def test_log_replay_kernel_at_epoch_sizes(cuda, D):
+    """D entries as the feed pads them (distinct records, then repeats of
+    the last, up to a power of two), one block at small D and many blocks
+    walking every pair in several chunks at large D: one launch, equal to
+    the plain version."""
+    d = {1: 1, 4: 3}.get(D, D - D // 32)
+    image, rows, slots, entries, offs = _replay_case(D, d, S=max(300, D),
+                                                     pad=D - d)
+    assert rows.numel() == D
+    want = ref.log_replay_scatter_ref(image.clone(), rows, slots, entries,
+                                      offs=offs)
+    dev = [x.to(cuda) for x in (image, rows, slots, entries)]
+    build.reset_launches()
+    got = delta_scatter.log_replay_scatter(*dev, offs=offs)
+    assert build.LAUNCHES["log_replay"] == 1
+    assert torch.equal(want, got.cpu())
+
+
+@pytest.mark.parametrize("row,slot", [(300, 0), (-301, 0), (2, -1), (2, 4),
+                                      (300, 4)])
+def test_log_replay_kernel_rejects_bad_pairs_held_in_registers(cuda, row,
+                                                                slot):
+    """Up to D = 8 every block holds all the pairs in registers and takes
+    one entry: a row outside [-S, S) or a slot outside [0, log_cap)
+    raises (rows first) and writes nothing."""
+    image, rows, slots, entries, offs = _replay_case(3, 3, pad=1)
+    rows[1], slots[1] = row, slot
+    dev = [x.to(cuda) for x in (image, rows, slots, entries)]
+    with pytest.raises(IndexError, match="rows" if row == 300 or row < -300
+                       else "slots"):
+        delta_scatter.log_replay_scatter(*dev, offs=offs)
+    assert torch.equal(dev[0].cpu(), image)
+
+
+def test_log_replay_kernel_good_call_after_a_rejected_one(cuda):
+    """A bad row in a late block of a many-block call raises and writes
+    nothing; the same call with the row repaired, right after, equals the
+    plain version (the flag is written anew on every call)."""
+    image, rows, slots, entries, offs = _replay_case(4, 1000, S=1200)
+    bad = rows.clone()
+    bad[900] = 5000
+    img, good, slots_d, entries_d = (x.clone().to(cuda) for x in
+                                     (image, rows, slots, entries))
+    with pytest.raises(IndexError, match="rows must lie"):
+        delta_scatter.log_replay_scatter(img, bad.to(cuda), slots_d,
+                                         entries_d, offs=offs)
+    assert torch.equal(img.cpu(), image)
+    want = ref.log_replay_scatter_ref(image.clone(), rows, slots, entries,
+                                      offs=offs)
+    got = delta_scatter.log_replay_scatter(img, good, slots_d, entries_d,
+                                           offs=offs)
+    assert torch.equal(want, got.cpu())
 
 
 @pytest.mark.parametrize("feed", ["log", "delta"])
@@ -624,8 +678,16 @@ def _search_case(B, N, KW, seed, lane_hi=60):
     return q, qlen, keys, klens, valid
 
 
-def _image_case(cfg, B, seed, count_top_bit=False):
-    """Random image rows with planted sorted candidate blocks, as
+#: a node's two candidate blocks: (keys, lengths, count) fields and the
+#: config attribute that gives their number of keys
+IMAGE_BLOCKS = {"sorted": ("skeys", "skeylen", "nitems", "node_cap"),
+                "shortcut": ("sc_keys", "sc_keylen", "n_shortcuts",
+                             "n_shortcuts")}
+
+
+def _image_case(cfg, B, seed, count_top_bit=False, block="sorted"):
+    """Random image rows with planted sorted candidate blocks (the sorted
+    block, or the shortcut block), as
     tests/test_layout.py:test_key_search_image_kernel_matches_ref plants
     them; with ``count_top_bit`` half the rows' live counts have their top
     bit set (a negative int32).  Returns (q, qlen, img, the block's
@@ -634,23 +696,57 @@ def _image_case(cfg, B, seed, count_top_bit=False):
     offs = layout.offsets()
     rng = np.random.default_rng(seed)
     kw = cfg.key_words
+    keys_f, lens_f, count_f, cap = IMAGE_BLOCKS[block]
+    n = getattr(cfg, cap)
     img = rng.integers(0, 2 ** 32, (B, layout.image_words), np.int64) \
         .astype(np.uint32)
-    sk, kl, ct = offs["skeys"][0], offs["skeylen"][0], offs["nitems"][0]
+    sk, kl, ct = offs[keys_f][0], offs[lens_f][0], offs[count_f][0]
     for b in range(B):
         keys = sorted(rng.integers(65, 91, 6, dtype=np.uint8).tobytes()
-                      for _ in range(cfg.node_cap))
+                      for _ in range(n))
         lanes, lens = pack_keys(keys, kw)
-        img[b, sk:sk + cfg.node_cap * kw] = lanes.reshape(-1)
-        img[b, kl:kl + cfg.node_cap] = lens.astype(np.uint32)
-        img[b, ct] = rng.integers(1, cfg.node_cap + 1)
+        img[b, sk:sk + n * kw] = lanes.reshape(-1)
+        img[b, kl:kl + n] = lens.astype(np.uint32)
+        img[b, ct] = rng.integers(1, n + 1)
         if count_top_bit and b % 2:
             img[b, ct] |= np.uint32(2 ** 31)
     q, qlen = pack_keys([rng.integers(65, 91, 6, dtype=np.uint8).tobytes()
                          for _ in range(B)], kw)
-    kwargs = dict(keys_off=sk, lens_off=kl, count_off=ct,
-                  n_keys=cfg.node_cap, key_words=kw)
+    kwargs = dict(keys_off=sk, lens_off=kl, count_off=ct, n_keys=n,
+                  key_words=kw)
     return q, qlen, img, kwargs
+
+
+#: (n_keys, key_words) of ``_wild_image_case``: the stores' width with a
+#: block that needs two chunks, and other widths (the kernel's generic
+#: instance), one of them chunked
+WILD_IMAGE = [(300, 8), (64, 8), (40, 3), (700, 3), (33, 1), (5, 20)]
+
+
+def _wild_image_case(N, KW, seed, B=12):
+    """Synthetic image rows of just the candidate block (count word 2,
+    keys from word 5, lengths after them) with lanes over the whole u32
+    range, most candidates sharing their query's lanes up to a random
+    lane, so that high bits and ties decided by length both occur, and
+    counts of 0, above ``N``, with the top bit set, and in between.
+    Returns (q, qlen, img, keywords)."""
+    rng = np.random.default_rng(seed)
+    koff, loff, coff = 5, 5 + N * KW, 2
+    img = rng.integers(0, 2 ** 32, (B, loff + N + 7), dtype=np.uint64) \
+        .astype(np.uint32)
+    q = rng.integers(0, 2 ** 32, (B, KW), dtype=np.uint64).astype(np.uint32)
+    qlen = rng.integers(0, 4 * KW + 1, B).astype(np.int32)
+    keys = img[:, koff:loff].reshape(B, N, KW)
+    cut = rng.integers(0, KW + 1, (B, N))
+    share = (np.arange(KW)[None, None, :] < cut[:, :, None]) \
+        & (rng.random((B, N, 1)) < 0.7)
+    keys[:] = np.where(share, q[:, None, :], keys)
+    img[:, loff:loff + N] = rng.integers(0, 4 * KW + 1, (B, N))
+    counts = [0, N + 5, 2 ** 31 + 3, 2 ** 32 - 1, N, N - 1, 1]
+    counts += list(rng.integers(0, N + 1, B - len(counts)))
+    img[:, coff] = np.array(counts, dtype=np.uint64).astype(np.uint32)
+    return q, qlen, img, dict(keys_off=koff, lens_off=loff, count_off=coff,
+                              n_keys=N, key_words=KW)
 
 
 def _merge_case(B, N, L, seed):
@@ -713,6 +809,33 @@ def test_key_search_image_kernel_matches_plain(cuda, count_top_bit):
     assert torch.equal(want, got) and int(got.max()) >= 0
     if count_top_bit:
         assert bool((got[1::2] == -1).all())
+
+
+@pytest.mark.parametrize("case", [
+    *(f"{g}-{blk}" for g in ("default", "small")
+      for blk in ("sorted", "shortcut")),
+    *(f"wild-{n}x{kw}" for n, kw in WILD_IMAGE)])
+def test_key_search_image_kernel_sweep(cuda, case):
+    """The image-mode kernel at the stores' blocks (the default geometry's
+    and SMALL's, both blocks, half the counts with the top bit set) and on
+    synthetic rows: a block that needs two chunks, widths that take the
+    generic instance, counts of 0, above n_keys and negative, full-range
+    lanes with ties decided by length.  One launch each, equal to the
+    plain version."""
+    kind, rest = case.split("-", 1)
+    if kind == "wild":
+        n, kw = map(int, rest.split("x"))
+        q, qlen, img, kwargs = _wild_image_case(n, kw, n + kw)
+    else:
+        cfg = HoneycombConfig() if kind == "default" else SMALL
+        q, qlen, img, kwargs = _image_case(cfg, 70, 7, True, rest)
+    args = [_i32(a, cuda) for a in (q, qlen, img)]
+    build.reset_launches()
+    got = key_search.key_search_image(*args, **kwargs)
+    assert build.LAUNCHES["key_search_image"] == 1
+    want = ref.key_search_image_ref(*args, **kwargs)
+    assert got.dtype == torch.int32 and torch.equal(want, got)
+    assert bool((got >= 0).any()) and bool((got == -1).any())
 
 
 @pytest.mark.parametrize("B,N,L,wild", [(4, 8, 4, False),

@@ -45,11 +45,15 @@ def test_key_search_matches_reference(B, N, KW, lane_hi):
         assert (keys >= 2 ** 31).any() and (got.numpy() >= 0).sum() > B // 4
 
 
-@pytest.mark.parametrize("count_top_bit", [False, True])
-def test_key_search_image_matches_reference(count_top_bit):
-    q, qlen, img, kwargs = _image_case(
-        HoneycombConfig(node_cap=16, log_cap=4, n_shortcuts=4), 24, 3,
-        count_top_bit)
+@pytest.mark.parametrize("cfg,block,count_top_bit", [
+    pytest.param(HoneycombConfig(node_cap=16, log_cap=4, n_shortcuts=4),
+                 "sorted", top, id=str(top)) for top in (False, True)] + [
+    pytest.param(HoneycombConfig(), block, top, id=f"default-{block}-{top}")
+    for block in ("sorted", "shortcut") for top in (False, True)])
+def test_key_search_image_matches_reference(cfg, block, count_top_bit):
+    """The 16-item geometry's sorted block, and the paper's default
+    geometry's sorted (64 keys) and shortcut (8 keys) blocks."""
+    q, qlen, img, kwargs = _image_case(cfg, 24, 3, count_top_bit, block)
     got = tops.key_search_image(_t(q), _t(qlen), _t(img), **kwargs).numpy()
     want = jops.key_search_image(*map(jnp.asarray, (q, qlen, img)),
                                  backend="ref", **kwargs)

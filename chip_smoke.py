@@ -24,7 +24,11 @@ after:
    of the image and must equal its plain version and the stable order of
    the read path's own leaf ranks.  The image-mode search is also held
    to its plain version on synthetic rows: a block that needs its chunk
-   loop and key widths of its generic instance.
+   loop and key widths of its generic instance; the block-mode search on
+   synthetic operands (both copy routes, a block in chunks, a key in
+   passes of lanes, valid masks all zero, full and not a prefix, keys at
+   a 4-byte offset); the leaf merge on wild leaves of each of its
+   instances (ranks that wrap, a live rank of INT32_MAX, ties).
 2. The range-sharded, replicated ``ShardedHoneycombStore``: 2 shards x 3
    replicas (round-robin reads, the log-shipped follower feed, a flat
    relay topology) over 2^18 keys.  Update epochs replay each epoch's
@@ -68,10 +72,11 @@ attention shapes of gemma2-27b (32 heads, 16 KV heads, soft-capping, a
 4,096-position window) and gemma3-12b (head dim 256, a 1,024-position
 window) on seeded synthetic pools, and its span plan is printed.  Each
 kernel's device time comes from a torch.profiler trace with the L2 cache
-flushed before every launch; the time per call through its Python
-wrapper and the plain version's time come from CUDA events.  The fused
-read's and paged attention's times before their redesign are printed
-beside this run's.  Both delta-sync scatters' byte bound counts the
+flushed before every launch (the block-mode search and the leaf merge
+in two turns); the time per call through its Python wrapper and the
+plain version's time come from CUDA events.  The fused read's, paged
+attention's, the block-mode search's and the leaf merge's times before
+their redesign are printed beside this run's.  Both delta-sync scatters' byte bound counts the
 distinct dirty rows only (``scatter_bound_ms``).
 
 Run from the repository root on a machine with a CUDA GPU:
@@ -143,7 +148,8 @@ KERNEL_VS_PLAIN_TOL = 0.25
 # the kernels' device times before their redesign (profiler, L2 flushed,
 # NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
 BEFORE_MS = {"fused_get": 0.0354, "fused_scan": 0.0365,
-             "paged_attention": 0.2887}
+             "paged_attention": 0.2887, "key_search": 0.0040,
+             "leaf_merge": 0.0290}
 # synthetic shapes of two more carried configs for the paged-attention
 # kernel: (name, H, KVH, D, softcap, window) of gemma2-27b and gemma3-12b
 PAGED_SHAPES = (("gemma2-27b", 32, 16, 128, 50.0, 4096),
@@ -231,23 +237,27 @@ def device_ms(fns: list, reps: int, match: str, flush: torch.Tensor,
     cold.  The host's work around the launches is left out.  The profiler
     drops some device events in a process that takes many traces: a trace
     holding fewer than ``min_traced`` of the launches is taken again, up
-    to ``tries`` traces, and the mean is over the launches traced."""
+    to ``tries`` traces, each retake half as long as the trace before (at
+    least 16 calls: drops have held traces of 64 launches to 52 three
+    times in a row), and the mean is over the launches traced."""
     for fn in fns:
         fn()
 
-    def run():
-        for r in range(reps):
+    def run(k):
+        for r in range(k):
             flush.fill_(r)
             fns[r % len(fns)]()
-    n = reps * per_call
-    for _ in range(tries):
-        us = [t for name, t in device_events(run)[0] if match in name]
+    for attempt in range(tries):
+        k = max(min(reps, 16), reps >> attempt)
+        n = k * per_call
+        us = [t for name, t in device_events(lambda: run(k))[0]
+              if match in name]
         check(len(us) <= n, f"the profiler traced {len(us)} launches of "
               f"{match} for {n} launches")
         if len(us) >= n * min_traced:
             return sum(us) / len(us) * per_call / 1e3
     raise SmokeFailure(f"the profiler traced {len(us)} launches of {match} "
-                       f"for {n} launches, in each of {tries} traces")
+                       f"for {n} launches in the last of {tries} traces")
 
 
 _FILL_NAMES = {}    # id(flush) -> the names of its fill kernels
@@ -879,6 +889,47 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
           f"range, ties decided by length, counts of 0, above n_keys and "
           f"negative): {', '.join(wild)}; each == its plain version")
 
+    # (h) the block mode on synthetic operands: widths of both routes and
+    # of the generic instance, a block in two chunks, a key too wide for
+    # one candidate (passes of lanes), valid masks all zero, full and not
+    # a prefix; each also with its keys at a 4-byte offset, which takes
+    # the 4-byte instance (not counted)
+    wild = []
+    for n, kw in WILD_BLOCK:
+        args_ = [x.to(dev) for x in wild_block_operands(BATCH, n, kw, gen)]
+        want = ref.key_search_ref(*args_)
+        for keys in (args_[2], offset_view(args_[2])):
+            same("key_search", want, key_search.key_search(
+                args_[0], args_[1], keys, *args_[3:]),
+                f"{n} keys of {kw} lanes at byte {keys.data_ptr() % 16} of "
+                f"16 vs plain")
+        plan = key_search.block_plan(n, kw, True)
+        wild.append(f"{n}x{kw} ({4 * plan.vec}-byte copies, {plan.chunks} "
+                    f"chunk(s) of {plan.spans} pass(es))")
+    check(any(key_search.block_plan(n, kw, True).spans > 1
+              for n, kw in WILD_BLOCK)
+          and any(key_search.block_plan(n, kw, True).chunks > 1
+                  for n, kw in WILD_BLOCK), "no synthetic block takes "
+          "chunks or passes")
+    print(f"key_search on synthetic operands (lanes over the whole u32 "
+          f"range, ties decided by length, valid masks all zero, full and "
+          f"not a prefix), each aligned and at a 4-byte offset: "
+          f"{', '.join(wild)}; each == its plain version")
+    # (i) the merge on wild leaves: every instance (a half-warp a leaf, a
+    # warp, the generic one), a live rank of INT32_MAX, one equal to a
+    # sorted rank, two log ranks equal, ranks that wrap, counts past the
+    # caps and negative (not counted)
+    for L_ in WILD_MERGE_LOGS:
+        args_ = [x.to(dev) for x in wild_leaves(BATCH, N, L_, gen)]
+        got = leaf_merge.leaf_merge(*args_, node_cap=N, log_cap=L_)
+        want = ref.leaf_merge_ref(*args_, node_cap=N, log_cap=L_)
+        same("leaf_merge", want[0], got[0], f"wild perm at L = {L_}")
+        same("leaf_merge", want[1], got[1], f"wild valid at L = {L_}")
+    print(f"leaf_merge on {BATCH} wild leaves of {N} sorted slots and "
+          f"{', '.join(map(str, WILD_MERGE_LOGS))} log slots (instances "
+          f"{sorted({leaf_merge.merge_plan(N, x).group for x in WILD_MERGE_LOGS})}"
+          f" lanes a leaf, 0 the generic one): perm and valid == plain")
+
     # ---- timings at the path's shapes (these launches are not counted) ---
     def image_bytes(mode):
         """Bytes an image-mode search of the timed batches must move, per
@@ -912,7 +963,10 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
             plain = [lambda c=c: ref.key_search_image_ref(
                 c[0], c[1], c[2], **mode) for c in kept]
             io = image_bytes(mode)
-        ms = device_ms(calls, 64, match, flush)
+        # two turns for the kernel redesigned last (block mode)
+        turns = [device_ms(calls, 64, match, flush)
+                 for _ in range(1 if mode else 2)]
+        ms = statistics.fmean(turns)
         wrapper_ms = cuda_ms(calls, 200)
         plain_ms = cuda_ms(plain, 32)
         bound_ms = io / HBM_BYTES_PER_S * 1e3
@@ -925,6 +979,13 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
                  "library_ms": None, "B": BATCH}
         what = "sorted block decoded to operands" if mode is None \
             else "sorted block in the image rows"
+        if mode is None:
+            entry["ms_turns"] = turns
+            plan = key_search.block_plan(N, KW, kept[0][3][0].data_ptr()
+                                         % 16 == 0)
+            what += (f" ({4 * plan.vec}-byte copies, {plan.warps} warp(s) a "
+                     f"block; turns {', '.join(f'{t:.6f}' for t in turns)}; "
+                     f"before the redesign {BEFORE_MS[name]:.4f} ms)")
         if mode is not None:      # the same kernel on the shortcut block
             sc_calls = [lambda c=c: key_search.key_search_image(
                 c[0], c[1], c[2], **shortcut) for c in kept]
@@ -943,7 +1004,9 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
 
     calls = [lambda: leaf_merge.leaf_merge(*merge_in, node_cap=N,
                                            log_cap=L)]
-    ms = device_ms(calls, 64, "leaf_merge_kernel", flush)
+    turns = [device_ms(calls, 64, "leaf_merge_kernel", flush)
+             for _ in range(2)]
+    ms = statistics.fmean(turns)
     wrapper_ms = cuda_ms(calls, 200)
     plain_ms = cuda_ms([lambda: ref.leaf_merge_ref(
         *merge_in, node_cap=N, log_cap=L)], 16)
@@ -954,13 +1017,17 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
     io = n_leaves * 4 * (2 + 2 * (N + L)) \
         + 8 * int(merge_in[1].clamp(0, L).sum())
     bound_ms = io / HBM_BYTES_PER_S * 1e3
+    plan = leaf_merge.merge_plan(N, L)
     print(f"leaf_merge: equals its plain version exactly (tolerance 0); "
           f"kernel {ms:.4f} ms device time for {n_leaves} leaves (L2 "
           f"flushed), {wrapper_ms:.4f} ms per call through the wrapper back "
           f"to back (plain {plain_ms:.4f} ms), bound {bound_ms:.6f} ms ({io} "
           f"B); partial yardstick torch.argsort(stable=True) of the "
           f"precomputed ranks (no shift-register sort, no ranks) "
-          f"{argsort_ms:.4f} ms device time")
+          f"{argsort_ms:.4f} ms device time; turns "
+          f"{', '.join(f'{t:.6f}' for t in turns)}, {plan.group} lanes a "
+          f"leaf, {plan.warps} warps a block; before the redesign "
+          f"{BEFORE_MS['leaf_merge']:.4f} ms")
     out.append({"name": "leaf_merge", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/leaf_merge.cu",
                 "replaces": "src/repro/kernels/leaf_merge.py:85",
@@ -969,7 +1036,7 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
                 "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": "bytes",
                 "library_ms": None, "argsort_ms": argsort_ms,
-                "leaves": n_leaves})
+                "leaves": n_leaves, "ms_turns": turns})
     return out, launches
 
 
@@ -1002,6 +1069,72 @@ def wild_image_rows(B: int, N: int, KW: int, gen) -> tuple:
     rows[:, coff] = count
     return q, qlen, rows, dict(keys_off=koff, lens_off=loff, count_off=coff,
                                n_keys=N, key_words=KW)
+
+
+#: (n_keys, key_words) of the synthetic block-mode checks: the 4-byte
+#: route (widths 1 and 3), the stores' width and the generic 16-byte route
+#: (8, 12), a block in two chunks (300 keys of 8 lanes) and a key too wide
+#: for one candidate beside the query (passes of lanes)
+WILD_BLOCK = ((3, 1), (64, 8), (80, 12), (300, 3), (300, 8), (40, 1500))
+#: log slots of the synthetic leaf-merge checks: both register instances'
+#: edges and the generic instance's
+WILD_MERGE_LOGS = (1, 16, 32, 33, 40)
+
+
+def wild_block_operands(B: int, N: int, KW: int, gen) -> tuple:
+    """Synthetic block-mode search operands: lanes over the whole u32
+    range, most candidates sharing their query's lanes up to a random lane
+    (so high bits and ties decided by length both occur); row 0's valid
+    mask all zero, row 1's full, row 2's every other candidate, the rest
+    random.  Returns (q, qlen, keys, klens, valid), on the CPU."""
+    word = dict(generator=gen, dtype=torch.int32)
+    q = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, KW), **word)
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, N, KW), **word)
+    cut = torch.randint(0, KW + 1, (B, N, 1), generator=gen)
+    share = (torch.arange(KW) < cut) \
+        & (torch.rand(B, N, 1, generator=gen) < 0.7)
+    keys = torch.where(share, q[:, None, :], keys).contiguous()
+    qlen = torch.randint(0, 4 * KW + 1, (B,), **word)
+    klens = torch.randint(0, 4 * KW + 1, (B, N), **word)
+    valid = (torch.rand(B, N, generator=gen) < 0.8).to(torch.int32)
+    valid[0], valid[1], valid[2, ::2] = 0, 1, 0
+    return q, qlen, keys, klens, valid
+
+
+def offset_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a contiguous tensor of its shape that starts one
+    element into a larger buffer: 4 bytes past a 16-byte boundary."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    check(view.is_contiguous() and view.data_ptr() % 16 == 4,
+          "offset view not 4 bytes past a 16-byte boundary")
+    return view
+
+
+def wild_leaves(B: int, N: int, L: int, gen) -> tuple:
+    """Synthetic leaves (B >= 3) of int32 words from the whole range:
+    counts in [-3, cap + 4], back pointers and hints whose ranks wrap,
+    half the rows' hints in [0, L]; leaf 0's one live log entry ranks
+    INT32_MAX, leaf 1's equals a sorted item's rank, leaf 2's two live
+    entries rank equal.  Returns (nitems, nlog, backptr, hints), on the
+    CPU."""
+    word = dict(generator=gen, dtype=torch.int32)
+    nitems = torch.randint(-3, N + 4, (B,), **word)
+    nlog = torch.randint(-3, L + 4, (B,), **word)
+    backptr = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, L), **word)
+    hints = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, L), **word)
+    hints[::2] = hints[::2].remainder(L + 1)
+    if L >= 1:
+        nlog[0], backptr[0, 0], hints[0, 0] = 1, 0, 2 ** 31 - 1
+    if L >= 1 and N >= 1:
+        nlog[1], nitems[1] = 1, N
+        backptr[1, 0], hints[1, 0] = min(2, N - 1), L
+    if L >= 2:
+        nlog[2] = 2
+        backptr[2, :2] = torch.tensor([3, 2])
+        hints[2, :2] = torch.tensor([0, L + 1])
+    return nitems, nlog, backptr, hints
 
 
 def replay_case(S: int, d: int, offs, layout, gen) -> tuple:

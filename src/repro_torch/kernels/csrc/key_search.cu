@@ -15,34 +15,48 @@
 // masked max.  Here one warp serves one request and a warp max-reduce
 // gives the floor.
 //
-// Block mode: the 32 lanes stride over the N candidates, each lane keeps
-// the largest index it found <= the query; the valid mask gates each
-// candidate's loads.
+// Bound: bytes, and in practice latency.  The call must read each
+// request's query and its count word (image mode) or valid mask (block
+// mode), the lanes and length of each live candidate, and write one
+// index: at most about 2.3 KB per request at the sorted block of the
+// default geometry (N = 64, key_words = 8), so a batch of 256 moves under
+// 0.6 MB, a fraction of a microsecond at the card's memory rate.  What
+// sets the time is the launch and the chain of dependent memory round
+// trips each warp waits on; both modes cut that chain to one.
 //
-// Image mode: the warp first copies everything its request needs into
-// shared memory in one burst of 4-byte cp.async copies (cp_async.cuh),
-// lane l taking words l, l + 32, ...: the count word, the query's length
-// and lanes, and the n_keys candidates' lanes and lengths, each
-// candidate's lanes and length side by side at an odd stride
-// (KW + 1) | 1, so the lanes of a warp reading candidates lane,
-// lane + 32, ... hit distinct banks.  No load waits on the count and
-// there is one wait.  Then each lane compares its candidates from shared
-// memory with no early exit (KW is a template parameter at the stores'
-// width, 8, and a runtime value otherwise), masks them with i < count
-// after the compares, and the warp max-reduces.  A block that outgrows
-// the warp's buffer is searched in chunks (``image_plan`` in
-// key_search.py sets the warps a block and the chunk; the launcher
-// checks the block's shared memory).  Candidates past the count are
-// copied too: they are words of the request's own row, inside the bounds
-// the wrapper checks.
+// Both modes: the warp first copies everything its request needs into a
+// shared-memory buffer of its own in one burst of cp.async copies
+// (cp_async.cuh), lane l taking copies l, l + 32, ... of each kind.  No
+// copy waits on the count, the valid mask or a compare, and there is one
+// wait.  Then each lane compares its candidates (lane, lane + 32, ...)
+// from shared memory with no early exit, masks them afterwards (i < count,
+// or valid != 0), and the warp max-reduces.  KW is a template parameter
+// at the stores' width, 8, with a generic instance for other widths.  A
+// block too large for the warp's buffer is searched in chunks, a burst a
+// chunk (``image_plan`` and ``block_plan`` in key_search.py set the warps
+// a block and the chunk; the launchers check the block's shared memory).
+// No pointer passes through shared memory, so every load keeps its
+// global state space.
 //
-// Bound: bytes.  The call must read each request's query and its count
-// word (image mode) or valid mask (block mode), the lanes and length of
-// each live candidate, and write one index: at most about 2.3 KB per
-// request at the sorted block of the default geometry (N = 64,
-// key_words = 8), less in a part-full node, so a batch of 256 moves under
-// 0.6 MB, a fraction of a microsecond at the card's memory rate; the
-// launch and one memory round trip set the time.
+// Image mode: rows sit at a 5,092-byte stride at the default geometry, so
+// only 4-byte copies are aligned.  Each candidate's lanes and length lie
+// side by side at an odd stride (KW + 1) | 1, so the lanes of a warp
+// reading candidates lane, lane + 32, ... hit distinct banks.  Candidates
+// past the count are copied too: they are words of the request's own row,
+// inside the bounds the wrapper checks.
+//
+// Block mode: the keys are a contiguous [B, N, KW] tensor.  Where the
+// wrapper finds them 16-byte aligned and KW % 4 == 0 the candidates'
+// lanes are copied as 16-byte vectors, so one copy instruction of the warp
+// reads 512 consecutive bytes (a lane reading its own candidate's words
+// at a 32-byte stride would touch 32 sectors an instruction); otherwise a
+// 4-byte instance of the same kernel copies them word by word.  A
+// candidate's lanes, length and valid word lie side by side: at a stride
+// of an odd number of 16-byte units with 16-byte copies, read back as
+// 16-byte vectors (8 lanes of a quarter-warp on distinct banks), and at
+// an odd stride of words with 4-byte copies.  Loading valid[c] first and
+// the lanes only where it is set, exiting at the first lane that
+// differs, would make each warp wait on a chain of dependent round trips.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,53 +65,11 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-
-// candidate (lanes k, length klen) <= query (lanes q, length qlen)
-__device__ __forceinline__ bool key_leq(const uint32_t* __restrict__ k,
-                                        int klen,
-                                        const uint32_t* __restrict__ q,
-                                        int qlen, int kw) {
-  for (int w = 0; w < kw; ++w) {
-    const uint32_t a = k[w], b = q[w];
-    if (a != b) return a < b;
-  }
-  return klen <= qlen;
-}
-
-__device__ __forceinline__ int warp_max(int v) {
-  for (int s = 16; s > 0; s >>= 1)
-    v = max(v, __shfl_xor_sync(0xffffffffu, v, s));
-  return v;
-}
-
-__global__ void key_search_kernel(const uint32_t* __restrict__ q,
-                                  const int* __restrict__ qlen,
-                                  const uint32_t* __restrict__ keys,
-                                  const int* __restrict__ klens,
-                                  const int* __restrict__ valid,
-                                  int* __restrict__ out, int B, int N,
-                                  int KW) {
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (b >= B) return;                   // uniform across the warp
-  const uint32_t* qb = q + (size_t)b * KW;
-  const int ql = qlen[b];
-  int best = -1;                        // a lane's indices rise: last wins
-  for (int i = lane; i < N; i += 32) {
-    const size_t c = (size_t)b * N + i;
-    if (valid[c] != 0 && key_leq(keys + c * KW, klens[c], qb, ql, KW))
-      best = i;
-  }
-  best = warp_max(best);
-  if (lane == 0) out[b] = best;
-}
-
-// image mode: the most warps (requests) a block may take, and the words
-// of one warp's buffer that image_plan (key_search.py) may fill: 4 warps
-// of 8 KB stay below the 48 KB a block takes without opt-in
-constexpr int kMaxImageWarps = 4;
-constexpr int kImageWarpWords = 2048;
+// Either mode: the most warps (requests) a block may take, and the words
+// of one warp's buffer that image_plan and block_plan (key_search.py) may
+// fill: 4 warps of 8 KB stay below the 48 KB a block takes without opt-in
+constexpr int kMaxWarps = 4;
+constexpr int kWarpWords = 2048;
 
 // Words between two candidates in a warp's buffer: the lanes, the
 // length, and a pad to an odd count.
@@ -172,19 +144,188 @@ __global__ void key_search_image_kernel(const uint32_t* __restrict__ q,
   if (lane == 0) out[b] = best;
 }
 
-int blocks_for(int B) { return (B + kWarpsPerBlock - 1) / kWarpsPerBlock; }
+// Block mode.  A pass stages `chunk` candidates' lanes [w0, w0 + span)
+// and the query's.  A warp's buffer: the query's lanes of the pass, its
+// length at word `span`, padded to a whole 16-byte unit, then the
+// candidates at `block_stride` words apart, each its lanes of the pass,
+// its length (word `span`) and its valid word (`span` + 1).  With 16-byte
+// copies (VEC == 4) the stride is an odd number of 16-byte units, so 8
+// lanes reading candidates lane, lane + 32, ... as 16-byte vectors hit
+// distinct banks; with 4-byte copies it is an odd number of words.
+__host__ __device__ constexpr int block_head(int span) {
+  return (span + 4) & ~3;
+}
+__host__ __device__ constexpr int block_stride(int span, int vec) {
+  return vec == 4 ? 4 * (((span + 5) / 4) | 1) : (span + 2) | 1;
+}
+__host__ __device__ constexpr int block_warp_words(int span, int vec,
+                                                   int chunk) {
+  return (block_head(span) + chunk * block_stride(span, vec) + 3) & ~3;
+}
+
+// One warp per request.  KW_T > 0 fixes the key width at compile time
+// (a pass then holds the whole key); KW_T == 0 takes it from `kw_rt` and
+// the lanes a pass from `span`.  A key wider than one pass (span < KW)
+// is compared a pass of lanes at a time, the highest lanes first, each
+// lane carrying its one candidate's verdict (the plan then takes at most
+// 32 candidates a chunk).  VEC == 4 copies the candidates' lanes as
+// 16-byte vectors (keys 16-byte aligned, KW % 4 == 0 and span % 4 == 0:
+// the launcher checks), VEC == 1 as words.
+template <int KW_T, int VEC>
+__global__ void key_search_kernel(const uint32_t* __restrict__ q,
+                                  const int* __restrict__ qlen,
+                                  const uint32_t* __restrict__ keys,
+                                  const int* __restrict__ klens,
+                                  const int* __restrict__ valid,
+                                  int* __restrict__ out, int B, int N,
+                                  int kw_rt, int chunk, int span) {
+  extern __shared__ uint4 smem4[];      // 16-byte aligned
+  const int KW = KW_T > 0 ? KW_T : kw_rt;
+  const int SP = KW_T > 0 ? KW_T : span;
+  const int ST = block_stride(SP, VEC);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;                   // uniform across the warp
+  uint32_t* s = reinterpret_cast<uint32_t*>(smem4) +
+                warp * block_warp_words(SP, VEC, chunk);
+  uint32_t* cand = s + block_head(SP);
+  const uint32_t* qb = q + (size_t)b * KW;
+  const int* lb = klens + (size_t)b * N;
+  const int* vb = valid + (size_t)b * N;
+
+  int best = -1;
+  bool carry = false;                   // a wide key's verdict so far
+  for (int i0 = 0; i0 < N; i0 += chunk) {
+    const int n = min(chunk, N - i0);
+    const uint32_t* kc = keys + ((size_t)b * N + i0) * KW;
+    for (int w0 = (KW - 1) / SP * SP; w0 >= 0; w0 -= SP) {
+      const int ws = min(SP, KW - w0);  // lanes of this pass
+      const bool top = w0 + SP >= KW, last = w0 == 0;
+      // ---- the burst: query lanes and length, candidates' lanes, and
+      // (first pass of a chunk) their lengths and valid words
+      for (int w = lane; w <= ws; w += 32)
+        cp_async4(s + (w < ws ? w : SP),
+                  w < ws ? qb + w0 + w : (const uint32_t*)qlen + b);
+      if constexpr (VEC == 4) {
+        const int V = ws / 4;           // vectors a candidate
+        for (int v = lane; v < n * V; v += 32) {
+          const int i = v / V, p = v % V;
+          cp_async16(cand + i * ST + 4 * p, kc + (size_t)i * KW + w0 + 4 * p);
+        }
+      } else {
+        for (int w = lane; w < n * ws; w += 32) {
+          const int i = w / ws, p = w % ws;
+          cp_async4(cand + i * ST + p, kc + (size_t)i * KW + w0 + p);
+        }
+      }
+      if (top)
+        for (int i = lane; i < n; i += 32) {
+          cp_async4(cand + i * ST + SP, lb + i0 + i);
+          cp_async4(cand + i * ST + SP + 1, vb + i0 + i);
+        }
+      cp_async_wait_all();
+      __syncwarp();
+      // ---- compares, no early exit
+      const int ql = (int)s[SP];
+      uint32_t qr[KW_T > 0 ? KW_T : 1];
+      if constexpr (KW_T > 0) {
+#pragma unroll
+        for (int w = 0; w < KW_T; ++w) qr[w] = s[w];
+      }
+      for (int i = lane; i < n; i += 32) {
+        const uint32_t* c = cand + i * ST;
+        int klen, ok;                   // length and valid word
+        if constexpr (VEC == 4) {       // one 16-byte read, no conflict
+          const uint4 t = *reinterpret_cast<const uint4*>(c + SP);
+          klen = (int)t.x;
+          ok = (int)t.y;
+        } else {
+          klen = (int)c[SP];
+          ok = (int)c[SP + 1];
+        }
+        bool leq = top ? klen <= ql : carry;   // where every lane is equal
+        if constexpr (KW_T > 0) {       // the first difference decides
+          uint32_t k[KW_T];
+          if constexpr (VEC == 4) {
+#pragma unroll
+            for (int p = 0; p < KW_T / 4; ++p) {
+              const uint4 t = reinterpret_cast<const uint4*>(c)[p];
+              k[4 * p] = t.x;
+              k[4 * p + 1] = t.y;
+              k[4 * p + 2] = t.z;
+              k[4 * p + 3] = t.w;
+            }
+          } else {
+#pragma unroll
+            for (int w = 0; w < KW_T; ++w) k[w] = c[w];
+          }
+#pragma unroll
+          for (int w = KW_T - 1; w >= 0; --w)
+            if (k[w] != qr[w]) leq = k[w] < qr[w];
+        } else if constexpr (VEC == 4) {
+          for (int p = ws / 4 - 1; p >= 0; --p) {
+            const uint4 t = reinterpret_cast<const uint4*>(c)[p];
+            const uint32_t* qp = s + 4 * p;
+            if (t.w != qp[3]) leq = t.w < qp[3];
+            if (t.z != qp[2]) leq = t.z < qp[2];
+            if (t.y != qp[1]) leq = t.y < qp[1];
+            if (t.x != qp[0]) leq = t.x < qp[0];
+          }
+        } else {
+          for (int w = ws - 1; w >= 0; --w)
+            if (c[w] != s[w]) leq = c[w] < s[w];
+        }
+        if (!last) carry = leq;         // one candidate a lane (plan)
+        else if (leq && ok != 0) best = i0 + i;    // indices rise
+      }
+      __syncwarp();                     // the buffer is read: refill it
+    }
+  }
+  best = __reduce_max_sync(0xffffffffu, best);
+  if (lane == 0) out[b] = best;
+}
+
+template <int KW_T, int VEC>
+void launch_block(const void* q, const void* qlen, const void* keys,
+                  const void* klens, const void* valid, void* out, int B,
+                  int N, int KW, int warps, int chunk, int span,
+                  cudaStream_t st) {
+  const size_t smem =
+      sizeof(uint32_t) * warps * block_warp_words(span, VEC, chunk);
+  key_search_kernel<KW_T, VEC><<<(B + warps - 1) / warps, 32 * warps, smem,
+                                 st>>>(
+      (const uint32_t*)q, (const int*)qlen, (const uint32_t*)keys,
+      (const int*)klens, (const int*)valid, (int*)out, B, N, KW, chunk,
+      span);
+}
 
 }  // namespace
 
 extern "C" int key_search_launch(const void* q, const void* qlen,
                                  const void* keys, const void* klens,
                                  const void* valid, void* out, int B, int N,
-                                 int KW, void* stream) {
+                                 int KW, int vec, int warps, int chunk,
+                                 int span, void* stream) {
   if (B <= 0) return 0;
-  key_search_kernel<<<blocks_for(B), 32 * kWarpsPerBlock, 0,
-                      (cudaStream_t)stream>>>(
-      (const uint32_t*)q, (const int*)qlen, (const uint32_t*)keys,
-      (const int*)klens, (const int*)valid, (int*)out, B, N, KW);
+  if (KW < 1 || N < 1 || chunk < 1 || warps < 1 || warps > kMaxWarps ||
+      span < 1 || span > KW || (span < KW && chunk > 32) ||
+      (vec != 1 && vec != 4) ||
+      (vec == 4 && (KW % 4 || span % 4 || (uintptr_t)keys % 16)) ||
+      block_warp_words(span, vec, chunk) > kWarpWords)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (KW == 8 && span == 8 && vec == 4)
+    launch_block<8, 4>(q, qlen, keys, klens, valid, out, B, N, KW, warps,
+                       chunk, span, st);
+  else if (KW == 8 && span == 8)
+    launch_block<8, 1>(q, qlen, keys, klens, valid, out, B, N, KW, warps,
+                       chunk, span, st);
+  else if (vec == 4)
+    launch_block<0, 4>(q, qlen, keys, klens, valid, out, B, N, KW, warps,
+                       chunk, span, st);
+  else
+    launch_block<0, 1>(q, qlen, keys, klens, valid, out, B, N, KW, warps,
+                       chunk, span, st);
   return (int)cudaGetLastError();
 }
 
@@ -195,8 +336,7 @@ extern "C" int key_search_image_launch(const void* q, const void* qlen,
                                        int warps, int chunk, void* stream) {
   if (B <= 0) return 0;
   if (KW < 1 || chunk < 1 || n_keys < 1 || warps < 1 ||
-      warps > kMaxImageWarps ||
-      image_warp_words(KW, chunk) > kImageWarpWords)
+      warps > kMaxWarps || image_warp_words(KW, chunk) > kWarpWords)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(uint32_t) * warps * image_warp_words(KW, chunk);
   const int blocks = (B + warps - 1) / warps;

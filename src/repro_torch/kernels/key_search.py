@@ -10,9 +10,12 @@ packed node-image row at the layout's static word offsets
 ``csrc/key_search.cu``, one warp per request.  Keys are int32 bit views of
 big-endian u32 lanes; the kernel compares them as unsigned words.
 
-The image mode stages each request's count, query and candidate block in
-a warp's shared-memory buffer before it compares; ``image_plan`` sizes
-that buffer, and a block too large for it is searched in chunks.
+Both modes stage each request's query and candidate block (with the
+image's count word, or the valid mask) in a warp's shared-memory buffer
+in one burst before they compare; ``image_plan`` and ``block_plan`` size
+that buffer, and a block too large for it is searched in chunks.  The
+block mode copies the candidates' lanes as 16-byte vectors where the
+keys are 16-byte aligned and ``KW % 4 == 0``, else word by word.
 """
 from __future__ import annotations
 
@@ -26,19 +29,24 @@ from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # q, qlen, keys, klens, valid, out, B, N, KW, stream
-    "key_search_launch": [_P] * 6 + [_I] * 3 + [_P],
+    # q, qlen, keys, klens, valid, out, B, N, KW, vec, warps, chunk, span,
+    # stream
+    "key_search_launch": [_P] * 6 + [_I] * 7 + [_P],
     # q, qlen, img, out, B, IW, keys_off, lens_off, count_off, n_keys, KW,
     # warps, chunk, stream
     "key_search_image_launch": [_P] * 4 + [_I] * 9 + [_P],
 }
 
 #: warps (requests) per block of the image-mode kernel; the kernel takes
-#: 1 to 4 (csrc/key_search.cu kMaxImageWarps)
+#: 1 to 4 (csrc/key_search.cu kMaxWarps)
 IMAGE_WARPS = 2
-#: the words one warp's buffer may hold (key_search.cu kImageWarpWords):
+#: the words one warp's buffer may hold (key_search.cu kWarpWords):
 #: 4 warps of 8 KB stay below the 48 KB a block takes without opt-in
 IMAGE_WARP_WORDS = 2048
+#: warps (requests) per block of the block-mode kernel, 1 to 4
+BLOCK_WARPS = 2
+#: the words one warp's buffer may hold in block mode (kWarpWords too)
+BLOCK_WARP_WORDS = IMAGE_WARP_WORDS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +89,68 @@ def image_plan(n_keys: int, key_words: int) -> ImagePlan:
                      4 * IMAGE_WARPS * warp_words)
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """How the block-mode kernel stages one request's ``n_keys``
+    candidates of ``key_words`` lanes: ``vec`` 4 copies their lanes as
+    16-byte vectors, 1 word by word; ``warps`` requests a block.  A pass
+    stages ``chunk`` candidates' lanes ``[w0, w0 + span)``: each warp's
+    buffer holds the query's lanes of the pass and its length in ``head``
+    words, then the candidates at ``stride`` words apart (the lanes, the
+    length, the valid word, a pad: an odd number of 16-byte units with
+    ``vec`` 4, of words with ``vec`` 1).  The block takes ``chunks``
+    chunks of ``spans`` passes each (one, unless a key outgrows the
+    buffer: then at most 32 candidates a chunk).  ``smem_bytes`` is the
+    block's shared memory."""
+    n_keys: int
+    key_words: int
+    vec: int
+    warps: int
+    chunk: int
+    chunks: int
+    span: int
+    spans: int
+    head: int
+    stride: int
+    warp_words: int
+    smem_bytes: int
+
+
+def _block_words(span: int, vec: int, chunk: int) -> tuple:
+    """(head, stride, warp words) of a pass (key_search.cu
+    ``block_head``, ``block_stride``, ``block_warp_words``)."""
+    head = (span + 4) & ~3
+    stride = 4 * (((span + 5) // 4) | 1) if vec == 4 else (span + 2) | 1
+    return head, stride, (head + chunk * stride + 3) & ~3
+
+
+@functools.lru_cache(maxsize=64)
+def block_plan(n_keys: int, key_words: int, aligned: bool) -> BlockPlan:
+    """The block-mode kernel's plan: 16-byte copies where the keys are
+    ``aligned`` to 16 bytes and ``key_words % 4 == 0``; the whole key a
+    pass and the whole block in one chunk where they fit a warp's
+    ``BLOCK_WARP_WORDS`` (the default geometry's sorted block, 64 keys of
+    8 lanes, takes 780 words), else the most candidates that fit; a key
+    too wide for one candidate beside the query is taken 32 candidates a
+    chunk, in passes of the most lanes that fit."""
+    if n_keys < 1 or key_words < 1:
+        raise ValueError(f"need n_keys >= 1 and key_words >= 1, got "
+                         f"{n_keys} and {key_words}")
+    vec = 4 if aligned and key_words % 4 == 0 else 1
+    head, stride, _ = _block_words(key_words, vec, 0)
+    room = (BLOCK_WARP_WORDS - head) // stride
+    if room >= 1:
+        span, chunk = key_words, min(n_keys, room)
+    else:
+        chunk = min(n_keys, 32)
+        span = max(s for s in range(vec, key_words, vec)
+                   if _block_words(s, vec, chunk)[2] <= BLOCK_WARP_WORDS)
+    head, stride, warp_words = _block_words(span, vec, chunk)
+    return BlockPlan(n_keys, key_words, vec, BLOCK_WARPS, chunk,
+                     -(-n_keys // chunk), span, -(-key_words // span), head,
+                     stride, warp_words, 4 * BLOCK_WARPS * warp_words)
+
+
 def key_search(q: torch.Tensor, qlen: torch.Tensor, keys: torch.Tensor,
                klens: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Floor search on CUDA: the largest ``i`` with ``valid[b, i]`` and
@@ -103,6 +173,7 @@ def key_search(q: torch.Tensor, qlen: torch.Tensor, keys: torch.Tensor,
     if N < 1 or KW < 1:
         raise ValueError(f"need at least one candidate of one lane, got "
                          f"keys {tuple(keys.shape)}")
+    plan = block_plan(N, KW, keys.data_ptr() % 16 == 0)
     out = torch.empty(B, dtype=torch.int32, device=keys.device)
     if B == 0:
         return out
@@ -111,7 +182,8 @@ def key_search(q: torch.Tensor, qlen: torch.Tensor, keys: torch.Tensor,
         err = build.launcher("key_search", "key_search_launch",
                              _ARGTYPES["key_search_launch"])(
             q.data_ptr(), qlen.data_ptr(), keys.data_ptr(), klens.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), B, N, KW, stream)
+            valid.data_ptr(), out.data_ptr(), B, N, KW, plan.vec,
+            plan.warps, plan.chunk, plan.span, stream)
     build.check(err, "key_search")
     build.LAUNCHES["key_search"] += 1
     return out

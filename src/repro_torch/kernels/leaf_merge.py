@@ -4,23 +4,69 @@ The leaf-node scan unit (paper Section 4.3) orders a leaf's sorted block
 and unsorted log block without comparing keys: the log block's order
 hints drive a shift-register sort, each log entry's back pointer places it
 before a sorted item, and the merged ranks give the emission permutation.
-``csrc/leaf_merge.cu`` runs one warp per leaf.
+``csrc/leaf_merge.cu`` places each slot by an O(T * L) count against the
+log ranks; ``merge_plan`` picks its instance: up to 32 log entries a
+group of lanes holds them in registers (16 lanes a leaf up to 16
+entries, 32 up to 32), beyond that one warp a leaf keeps them in shared
+memory.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from . import build
 
-#: the kernel keeps N + 2L words a leaf in shared memory, four leaves a
-#: block, within the 48 KB a block gets without opting in
+#: the wrapper takes node_cap + 2 * log_cap <= MAX_SHARED_WORDS, the
+#: domain of the first kernel (its shared-memory budget), kept so that no
+#: input it took is refused; the generic instance needs 12 * log_cap bytes
+#: a leaf, two leaves a block, within the 48 KB a block gets without
+#: opting in
 MAX_SHARED_WORDS = 3072
+#: warps a block of the register instances
+MERGE_WARPS = 4
+#: warps (leaves) a block of the generic instance
+GENERIC_WARPS = 2
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# nitems, nlog, backptr, hints, perm, valid, B, N, L, stream
-_ARGTYPES = [_P] * 6 + [_I] * 3 + [_P]
+# nitems, nlog, backptr, hints, perm, valid, B, N, L, group, warps, stream
+_ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
+
+
+@dataclasses.dataclass(frozen=True)
+class MergePlan:
+    """How ``csrc/leaf_merge.cu`` takes leaves of ``node_cap`` sorted and
+    ``log_cap`` log slots: ``group`` lanes a leaf holding its log entries
+    and ranks in registers (16 or 32, at least ``log_cap``), or 0 for the
+    generic instance (one warp a leaf, the entries in shared memory);
+    ``warps`` a block, ``leaves`` a block; ``smem_bytes`` is the block's
+    shared memory."""
+    node_cap: int
+    log_cap: int
+    group: int
+    warps: int
+    leaves: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def merge_plan(node_cap: int, log_cap: int) -> MergePlan:
+    """The merge's plan: a half-warp a leaf up to 16 log entries (two
+    leaves a warp), a warp up to 32, the generic instance beyond."""
+    if node_cap < 0 or log_cap < 0 \
+            or node_cap + 2 * log_cap > MAX_SHARED_WORDS:
+        raise ValueError(f"node_cap={node_cap}, log_cap={log_cap}: the "
+                         f"kernel takes node_cap + 2 * log_cap <= "
+                         f"{MAX_SHARED_WORDS}")
+    if log_cap > 32:
+        return MergePlan(node_cap, log_cap, 0, GENERIC_WARPS, GENERIC_WARPS,
+                         12 * GENERIC_WARPS * log_cap)
+    group = 16 if log_cap <= 16 else 32
+    return MergePlan(node_cap, log_cap, group, MERGE_WARPS,
+                     MERGE_WARPS * 32 // group, 0)
 
 
 def leaf_merge(nitems: torch.Tensor, nlog: torch.Tensor,
@@ -44,9 +90,7 @@ def leaf_merge(nitems: torch.Tensor, nlog: torch.Tensor,
         raise ValueError(f"need nlog [{B}], backptr and hints [{B}, {L}], "
                          f"got {tuple(nlog.shape)}, {tuple(backptr.shape)} "
                          f"and {tuple(hints.shape)}")
-    if N < 0 or L < 0 or N + 2 * L > MAX_SHARED_WORDS:
-        raise ValueError(f"node_cap={N}, log_cap={L}: the kernel takes "
-                         f"node_cap + 2 * log_cap <= {MAX_SHARED_WORDS}")
+    plan = merge_plan(N, L)
     T = N + L
     perm = torch.empty(B, T, dtype=torch.int32, device=nitems.device)
     valid = torch.empty_like(perm)
@@ -57,7 +101,7 @@ def leaf_merge(nitems: torch.Tensor, nlog: torch.Tensor,
         err = build.launcher("leaf_merge", "leaf_merge_launch", _ARGTYPES)(
             nitems.data_ptr(), nlog.data_ptr(), backptr.data_ptr(),
             hints.data_ptr(), perm.data_ptr(), valid.data_ptr(), B, N, L,
-            stream)
+            plan.group, plan.warps, stream)
     build.check(err, "leaf_merge")
     build.LAUNCHES["leaf_merge"] += 1
     return perm, valid

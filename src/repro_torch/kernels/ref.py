@@ -10,10 +10,12 @@ The kernel wrappers (``key_search.py``, ``leaf_merge.py``,
 order), and ``ops.py`` runs them for tensors on the CPU.
 ``paged_attention_split_ref`` mirrors the kernel's split into spans and
 its combining pass, ``flat_scatter_mirror`` the scatters' flattened row
-copy, ``key_search_image_mirror`` the image-mode search's staged burst
-and chunks, ``replay_pairs`` and ``replay_verdict`` the log replay's walk
-over the pairs and its range check; the tests hold them to the plain
-versions, nothing on a main path runs them.
+copy, ``key_search_image_mirror`` and ``key_search_block_mirror`` the
+floor search's staged burst, chunks and passes in either mode,
+``leaf_merge_mirror`` the merge's O(T * L) placement, ``replay_pairs``
+and ``replay_verdict`` the log replay's walk over the pairs and its range
+check; the tests hold them to the plain versions, nothing on a main path
+runs them.
 """
 from __future__ import annotations
 
@@ -59,8 +61,10 @@ def key_search_image_ref(q: torch.Tensor, qlen: torch.Tensor,
     return key_search_ref(q, qlen, keys, klens, valid)
 
 
-#: sources of the image-mode search's staged words (``image_stage_words``)
-STAGE_COUNT, STAGE_QLEN, STAGE_QUERY, STAGE_KEY, STAGE_LEN = range(5)
+#: sources of the floor search's staged words (``image_stage_words``,
+#: ``block_stage_words``)
+STAGE_COUNT, STAGE_QLEN, STAGE_QUERY, STAGE_KEY, STAGE_LEN, STAGE_VALID = \
+    range(6)
 
 
 def image_stage_words(plan):
@@ -123,6 +127,140 @@ def key_search_image_mirror(q: torch.Tensor, qlen: torch.Tensor,
                              live)
         best = torch.where(got >= 0, got + i0, best)
     return best
+
+
+def block_stage_words(plan):
+    """The bursts of the block-mode floor search (``csrc/key_search.cu``)
+    under a ``key_search.BlockPlan``, one warp's share: per chunk, per
+    pass of lanes (the highest lanes first), the ``(lane, src, idx, dst)``
+    int64 tensors of every word it copies.  ``src`` is one of the
+    ``STAGE_*`` sources: the query length, query lane ``idx``, key word
+    ``idx`` of the request's [N, KW] block, length or valid word ``idx``;
+    ``dst`` its word in the warp's buffer: the pass's query lanes from 0,
+    the length at ``span``, candidate i of the chunk at ``head + i *
+    stride``, its lanes of the pass, then its length and valid word at
+    ``span`` and ``span + 1`` (copied in the chunk's first pass only).
+    Key words come in copy order: each ``plan.vec`` of them in a row are
+    one copy (16 bytes with ``vec`` 4), issued by one lane.  Lane l issues
+    the l-th, (l + 32)-th, ... copy of each of the kernel's loops."""
+    KW, SP, ST, H, V = (plan.key_words, plan.span, plan.stride, plan.head,
+                        plan.vec)
+    out = []
+    for c in range(plan.chunks):
+        i0 = c * plan.chunk
+        n = min(plan.chunk, plan.n_keys - i0)
+        passes = []
+        for w0 in range((KW - 1) // SP * SP, -1, -SP):
+            ws = min(SP, KW - w0)
+            w = torch.arange(ws + 1)
+            parts = [(w % 32, torch.where(w < ws, STAGE_QUERY, STAGE_QLEN),
+                      torch.where(w < ws, w0 + w, 0),
+                      torch.where(w < ws, w, SP))]
+            k = torch.arange(n * ws)            # word k of the pass's copies
+            i, p = k // ws, k % ws
+            parts.append(((k // V) % 32, torch.full_like(k, STAGE_KEY),
+                          (i0 + i) * KW + w0 + p, H + i * ST + p))
+            if w0 + SP >= KW:
+                j = torch.arange(n)
+                for src, off in ((STAGE_LEN, SP), (STAGE_VALID, SP + 1)):
+                    parts.append((j % 32, torch.full_like(j, src), i0 + j,
+                                  H + j * ST + off))
+            passes.append(tuple(torch.cat(x) for x in zip(*parts)))
+        out.append(passes)
+    return out
+
+
+def key_search_block_mirror(q: torch.Tensor, qlen: torch.Tensor,
+                            keys: torch.Tensor, klens: torch.Tensor,
+                            valid: torch.Tensor, plan) -> torch.Tensor:
+    """The block-mode floor search as its kernel performs it, on the CPU:
+    each pass's words copied into a buffer per request as
+    ``block_stage_words`` assigns them (the buffer starts all ones, so a
+    word the burst missed shows), then every candidate of the chunk
+    compared from the buffer, lane by lane from the pass's highest, with
+    no early exit: its verdict starts at ``klen <= qlen`` in a chunk's
+    first pass and carries into the next; after the last pass it is
+    masked with ``valid != 0`` and the largest index kept.  Returns [B]
+    int32, as ``key_search_ref``."""
+    B, KW, SP, H, ST = keys.shape[0], plan.key_words, plan.span, \
+        plan.head, plan.stride
+    flat = keys.reshape(B, -1)
+    best = torch.full((B,), -1, dtype=torch.int32)
+    for c, passes in enumerate(block_stage_words(plan)):
+        i0 = c * plan.chunk
+        n = min(plan.chunk, plan.n_keys - i0)
+        carry = None
+        for w0, (_, src, idx, dst) in zip(
+                range((KW - 1) // SP * SP, -1, -SP), passes):
+            ws = min(SP, KW - w0)
+            buf = torch.full((B, plan.warp_words), -1, dtype=torch.int32) \
+                if w0 + SP >= KW else buf
+            pick = {STAGE_QLEN: qlen[:, None].expand(B, idx.numel()),
+                    STAGE_QUERY: q[:, idx.clamp(max=KW - 1)],
+                    STAGE_KEY: flat[:, idx.clamp(max=flat.shape[1] - 1)],
+                    STAGE_LEN: klens[:, idx.clamp(max=plan.n_keys - 1)],
+                    STAGE_VALID: valid[:, idx.clamp(max=plan.n_keys - 1)]}
+            val = torch.zeros(B, idx.numel(), dtype=torch.int32)
+            for s_, v in pick.items():
+                val = torch.where(src == s_, v, val)
+            buf[:, dst] = val
+            cand = buf[:, H:H + n * ST].reshape(B, n, ST)
+            k = cand[:, :, :ws].long() & 0xFFFFFFFF     # lanes as unsigned
+            qs = buf[:, None, :ws].long() & 0xFFFFFFFF
+            leq = cand[:, :, SP] <= buf[:, SP:SP + 1] if carry is None \
+                else carry
+            for w in range(ws - 1, -1, -1):     # the lowest difference wins
+                leq = torch.where(k[..., w] != qs[..., w],
+                                  k[..., w] < qs[..., w], leq)
+            carry = leq
+        ok = cand[:, :, SP + 1] != 0
+        ar = torch.arange(i0, i0 + n, dtype=torch.int32)
+        got = torch.where(leq & ok, ar, -1).amax(dim=1).to(torch.int32)
+        best = torch.maximum(best, got)
+    return best
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values to int32 as a 32-bit register holds their low bits."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def leaf_merge_mirror(nitems: torch.Tensor, nlog: torch.Tensor,
+                      backptr: torch.Tensor, hints: torch.Tensor, *,
+                      node_cap: int, log_cap: int):
+    """The leaf merge as ``csrc/leaf_merge.cu`` computes it, on the CPU:
+    the read path's shift register, the ranks in 32-bit unsigned
+    arithmetic, then the O(T * L) placement in place of a sort.
+    Sorted slot i goes to ``i + #{l : rank_l < rank_i}``; log slot l to
+    its closed-form sorted term (0 below L, N at INT32_MAX, else
+    ``min(live sorted, (rank_l - L) // (L + 1) + 1)``) plus
+    ``#{m : rank_m < rank_l, or rank_m == rank_l and m < l}``.  Returns
+    (perm, valid) as ``leaf_merge_ref``."""
+    N, L = node_cap, log_cap
+    B = nitems.shape[0]
+    IMAX = 2 ** 31 - 1
+    nl = nlog.long()[:, None]
+    lanes = torch.arange(L)[None, :]
+    pos = _rp.log_sort_positions(hints, nlog, L).long()
+    rank = torch.where(lanes < nl, _wrap32(backptr.long() * (L + 1) + pos),
+                       IMAX).long()             # [B, L]
+    nv = nitems.long().clamp(0, N)[:, None]
+    i = torch.arange(N)[None, :]
+    srank = torch.where(i < nv, i * (L + 1) + L, IMAX)          # [B, N]
+    out_s = i + (rank[:, None, :] < srank[:, :, None]).sum(dim=2)
+    before = torch.minimum(nv, (rank - L).div(L + 1, rounding_mode="floor")
+                           + 1)
+    before = torch.where(rank == IMAX, N, torch.where(rank < L, 0, before))
+    m = torch.arange(L)
+    ties = (rank[:, None, :] == rank[:, :, None]) & (m[None, :] < m[:, None])
+    out_l = before + ((rank[:, None, :] < rank[:, :, None]) | ties).sum(dim=2)
+    out = torch.cat([out_s, out_l], dim=1)
+    slots = torch.arange(N + L, dtype=torch.int32).expand(B, -1)
+    perm = torch.full((B, N + L), -1, dtype=torch.int32)
+    perm.scatter_(1, out, slots)
+    valid = torch.cat([i < nv, lanes < nl], dim=1).to(torch.int32)
+    return perm, valid
 
 
 def leaf_merge_ref(nitems: torch.Tensor, nlog: torch.Tensor,

@@ -760,6 +760,64 @@ def _merge_case(B, N, L, seed):
     return nitems, nlog, backptr, hints
 
 
+#: (n_keys, key_words) of the block-mode search sweep: every N of
+#: {3, 64, 80, 300} with every KW of {1, 3, 4, 8, 12} (8 the stores'
+#: width, 4 and 12 the generic 16-byte route, the others 4-byte copies),
+#: then keys too wide for one candidate beside the query (passes of lanes)
+BLOCK_SEARCH = [(n, kw) for n in (3, 64, 80, 300) for kw in (1, 3, 4, 8, 12)] \
+    + [(7, 1022), (40, 1500)]
+
+
+def _block_case(N, KW, B=12):
+    """Block-mode search inputs on full-range lanes (``_search_case``)
+    whose valid masks are all zero (row 0), full (row 1) and not a prefix
+    (row 2, every other candidate), random in the other rows."""
+    q, qlen, keys, klens, valid = _search_case(B, N, KW, N + KW, 2 ** 32)
+    valid[0] = 0
+    valid[1] = 1
+    valid[2, ::2] = 0
+    return q, qlen, keys, klens, valid
+
+
+def _offset_view(t):
+    """``t``'s values in a contiguous tensor of its shape that starts one
+    element into a larger buffer: 4 bytes off any 16-byte boundary."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+#: (B, N, L) of the reference's leaf-merge sweep and the register
+#: instance's edges (L = 32 in a warp, 33 the generic instance)
+MERGE_SWEEP = [(4, 8, 4), (64, 64, 16), (33, 16, 8), (9, 40, 40),
+               (20, 64, 32), (20, 64, 33)]
+
+
+def _wild_merge_case(B, N, L, seed):
+    """Leaves of int32 words from the whole range (``B >= 3``): counts in
+    [-3, cap + 4], back pointers and hints whose ranks wrap, half the rows'
+    hints in [0, L]; then leaf 0's one live log entry ranks INT32_MAX,
+    leaf 1's equals sorted item 2's rank (or the last item's), and leaf
+    2's two live entries rank equal."""
+    rng = np.random.default_rng(seed)
+    nitems, nlog = (rng.integers(-3, n + 4, (B,)).astype(np.int32)
+                    for n in (N, L))
+    backptr, hints = (rng.integers(-2 ** 31, 2 ** 31, (B, L))
+                      .astype(np.int32) for _ in range(2))
+    hints[::2] %= L + 1
+    if L >= 1:
+        nlog[0], backptr[0, 0], hints[0, 0] = 1, 0, 2 ** 31 - 1
+    if L >= 1 and N >= 1:
+        nlog[1], nitems[1] = 1, N
+        backptr[1, 0], hints[1, 0] = min(2, N - 1), L
+    if L >= 2:
+        nlog[2] = 2
+        backptr[2, :2], hints[2, :2] = (3, 2), (0, L + 1)
+    return nitems, nlog, backptr, hints
+
+
 #: (B, H, KVH, D, P, PPS): the reference's sweep (tests/test_kernels.py),
 #: then G = 1 with D = 80, G = 8 with D = 128, G = 2 with D = 256 (as
 #: gemma3-12b), G = 16, and a long case whose live lengths span many of
@@ -796,6 +854,37 @@ def test_key_search_kernel_matches_plain(cuda, B, N, KW, lane_hi):
     want = ref.key_search_ref(*args)
     assert got.dtype == torch.int32 and torch.equal(want, got)
     assert bool((got >= 0).any())
+
+
+@pytest.mark.parametrize("case", [f"{n}x{kw}" for n, kw in BLOCK_SEARCH])
+def test_key_search_block_kernel_sweep(cuda, case):
+    """The block-mode kernel at every N and KW of the sweep (the 16-byte
+    route where KW % 4 == 0, passes of lanes for the widest keys), valid
+    masks all zero, full and not a prefix; then the same keys at a 4-byte
+    offset, which take the 4-byte instance.  One launch each, equal to the
+    plain version."""
+    n, kw = map(int, case.split("x"))
+    args = [_i32(a, cuda) for a in _block_case(n, kw)]
+    want = ref.key_search_ref(*args)
+    for keys in (args[2], _offset_view(args[2])):
+        build.reset_launches()
+        got = key_search.key_search(args[0], args[1], keys, *args[3:])
+        assert build.LAUNCHES["key_search"] == 1
+        assert got.dtype == torch.int32 and torch.equal(want, got)
+    assert bool((want >= 0).any()) and int(want[0]) == -1
+
+
+@pytest.mark.parametrize("B", [1, 255, 256, 257])
+def test_key_search_block_kernel_batch_edges(cuda, B):
+    """Batches around the smoke's 256 at the stores' block (64 keys of 8
+    lanes), by both routes: the last block of warps partly empty."""
+    args = [_i32(a, cuda) for a in _search_case(B, 64, 8, B, 2 ** 32)]
+    want = ref.key_search_ref(*args)
+    for keys in (args[2], _offset_view(args[2])):
+        build.reset_launches()
+        got = key_search.key_search(args[0], args[1], keys, *args[3:])
+        assert build.LAUNCHES["key_search"] == 1
+        assert torch.equal(want, got)
 
 
 @pytest.mark.parametrize("count_top_bit", [False, True])
@@ -865,6 +954,25 @@ def test_leaf_merge_kernel_matches_plain(cuda, B, N, L, wild):
     assert torch.equal(perm.sort(dim=1).values,
                        torch.arange(N + L, device=cuda,
                                     dtype=torch.int32).expand(B, -1))
+
+
+@pytest.mark.parametrize("B,N,L", MERGE_SWEEP)
+@pytest.mark.parametrize("wild", [False, True])
+def test_leaf_merge_kernel_instances(cuda, B, N, L, wild):
+    """Every instance of the merge (a half-warp a leaf, a warp, the
+    generic one) on the reference's leaves and on wild ones
+    (``_wild_merge_case``: a live rank of INT32_MAX, one equal to a sorted
+    rank, two log ranks equal, ranks that wrap, counts past the caps and
+    negative).  One launch, equal to the plain version in all T
+    positions."""
+    case = _wild_merge_case(max(B, 3), N, L, B + N + L) if wild \
+        else _merge_case(B, N, L, B + N + L)
+    args = [_i32(a, cuda) for a in case]
+    build.reset_launches()
+    perm, valid = leaf_merge.leaf_merge(*args, node_cap=N, log_cap=L)
+    assert build.LAUNCHES["leaf_merge"] == 1
+    wp, wv = ref.leaf_merge_ref(*args, node_cap=N, log_cap=L)
+    assert torch.equal(wp, perm) and torch.equal(wv, valid)
 
 
 def test_ksu_rsu_kernels_take_empty_batches(cuda):

@@ -25,10 +25,11 @@ after:
    the read path's own leaf ranks.  The image-mode search is also held
    to its plain version on synthetic rows: a block that needs its chunk
    loop and key widths of its generic instance; the block-mode search on
-   synthetic operands (both copy routes, a block in chunks, a key in
-   passes of lanes, valid masks all zero, full and not a prefix, keys at
-   a 4-byte offset); the leaf merge on wild leaves of each of its
-   instances (ranks that wrap, a live rank of INT32_MAX, ties).
+   synthetic operands (the stores' width and the generic instance's, a
+   block in chunks, a key in passes of lanes, valid masks all zero, full
+   and not a prefix, keys at a 4-byte offset); the leaf merge on wild
+   leaves of both its instances (ranks that wrap, a live rank of
+   INT32_MAX, ties).
 2. The range-sharded, replicated ``ShardedHoneycombStore``: 2 shards x 3
    replicas (round-robin reads, the log-shipped follower feed, a flat
    relay topology) over 2^18 keys.  Update epochs replay each epoch's
@@ -239,7 +240,8 @@ def device_ms(fns: list, reps: int, match: str, flush: torch.Tensor,
     holding fewer than ``min_traced`` of the launches is taken again, up
     to ``tries`` traces, each retake half as long as the trace before (at
     least 16 calls: drops have held traces of 64 launches to 52 three
-    times in a row), and the mean is over the launches traced."""
+    times in a row; a figure from a retake is announced on a line of its
+    own), and the mean is over the launches traced."""
     for fn in fns:
         fn()
 
@@ -255,6 +257,9 @@ def device_ms(fns: list, reps: int, match: str, flush: torch.Tensor,
         check(len(us) <= n, f"the profiler traced {len(us)} launches of "
               f"{match} for {n} launches")
         if len(us) >= n * min_traced:
+            if attempt:
+                print(f"device_ms: {match} from retake {attempt} ({k} "
+                      f"calls, {len(us)} launches traced)")
             return sum(us) / len(us) * per_call / 1e3
     raise SmokeFailure(f"the profiler traced {len(us)} launches of {match} "
                        f"for {n} launches in the last of {tries} traces")
@@ -889,11 +894,11 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
           f"range, ties decided by length, counts of 0, above n_keys and "
           f"negative): {', '.join(wild)}; each == its plain version")
 
-    # (h) the block mode on synthetic operands: widths of both routes and
-    # of the generic instance, a block in two chunks, a key too wide for
-    # one candidate (passes of lanes), valid masks all zero, full and not
-    # a prefix; each also with its keys at a 4-byte offset, which takes
-    # the 4-byte instance (not counted)
+    # (h) the block mode on synthetic operands: the stores' width and
+    # those of the generic instance, a block in two chunks, a key too wide
+    # for one candidate (passes of lanes), valid masks all zero, full and
+    # not a prefix; each also with its keys at a 4-byte offset (not
+    # counted)
     wild = []
     for n, kw in WILD_BLOCK:
         args_ = [x.to(dev) for x in wild_block_operands(BATCH, n, kw, gen)]
@@ -903,22 +908,22 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
                 args_[0], args_[1], keys, *args_[3:]),
                 f"{n} keys of {kw} lanes at byte {keys.data_ptr() % 16} of "
                 f"16 vs plain")
-        plan = key_search.block_plan(n, kw, True)
-        wild.append(f"{n}x{kw} ({4 * plan.vec}-byte copies, {plan.chunks} "
-                    f"chunk(s) of {plan.spans} pass(es))")
-    check(any(key_search.block_plan(n, kw, True).spans > 1
+        plan = key_search.block_plan(n, kw)
+        wild.append(f"{n}x{kw} ({plan.chunks} chunk(s) of {plan.spans} "
+                    f"pass(es))")
+    check(any(key_search.block_plan(n, kw).spans > 1
               for n, kw in WILD_BLOCK)
-          and any(key_search.block_plan(n, kw, True).chunks > 1
+          and any(key_search.block_plan(n, kw).chunks > 1
                   for n, kw in WILD_BLOCK), "no synthetic block takes "
           "chunks or passes")
     print(f"key_search on synthetic operands (lanes over the whole u32 "
           f"range, ties decided by length, valid masks all zero, full and "
           f"not a prefix), each aligned and at a 4-byte offset: "
           f"{', '.join(wild)}; each == its plain version")
-    # (i) the merge on wild leaves: every instance (a half-warp a leaf, a
-    # warp, the generic one), a live rank of INT32_MAX, one equal to a
-    # sorted rank, two log ranks equal, ranks that wrap, counts past the
-    # caps and negative (not counted)
+    # (i) the merge on wild leaves: both instances (a half-warp a leaf,
+    # the generic one), a live rank of INT32_MAX, one equal to a sorted
+    # rank, two log ranks equal, ranks that wrap, counts past the caps and
+    # negative (not counted)
     for L_ in WILD_MERGE_LOGS:
         args_ = [x.to(dev) for x in wild_leaves(BATCH, N, L_, gen)]
         got = leaf_merge.leaf_merge(*args_, node_cap=N, log_cap=L_)
@@ -981,11 +986,10 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
             else "sorted block in the image rows"
         if mode is None:
             entry["ms_turns"] = turns
-            plan = key_search.block_plan(N, KW, kept[0][3][0].data_ptr()
-                                         % 16 == 0)
-            what += (f" ({4 * plan.vec}-byte copies, {plan.warps} warp(s) a "
-                     f"block; turns {', '.join(f'{t:.6f}' for t in turns)}; "
-                     f"before the redesign {BEFORE_MS[name]:.4f} ms)")
+            plan = key_search.block_plan(N, KW)
+            what += (f" ({plan.warps} warp(s) a block; turns "
+                     f"{', '.join(f'{t:.6f}' for t in turns)}; before the "
+                     f"redesign {BEFORE_MS[name]:.4f} ms)")
         if mode is not None:      # the same kernel on the shortcut block
             sc_calls = [lambda c=c: key_search.key_search_image(
                 c[0], c[1], c[2], **shortcut) for c in kept]
@@ -1071,13 +1075,17 @@ def wild_image_rows(B: int, N: int, KW: int, gen) -> tuple:
                                n_keys=N, key_words=KW)
 
 
-#: (n_keys, key_words) of the synthetic block-mode checks: the 4-byte
-#: route (widths 1 and 3), the stores' width and the generic 16-byte route
-#: (8, 12), a block in two chunks (300 keys of 8 lanes) and a key too wide
-#: for one candidate beside the query (passes of lanes)
+# The synthetic cases below follow tests/test_torch_cuda.py's
+# _block_case, _offset_view and _wild_merge_case.  They are copies, not
+# imports: the smoke runs on the port alone, every module it imports
+# coming from src/ (tests/test_torch_foundations.py holds that).
+#: (n_keys, key_words) of the synthetic block-mode checks: the stores'
+#: width (8) and others of the generic instance (1, 3, 12), a block in two
+#: chunks (300 keys of 8 lanes) and a key too wide for one candidate beside
+#: the query (passes of lanes)
 WILD_BLOCK = ((3, 1), (64, 8), (80, 12), (300, 3), (300, 8), (40, 1500))
-#: log slots of the synthetic leaf-merge checks: both register instances'
-#: edges and the generic instance's
+#: log slots of the synthetic leaf-merge checks: the register instance's
+#: edges (1, 16) and the generic instance's (32, 33, 40)
 WILD_MERGE_LOGS = (1, 16, 32, 33, 40)
 
 

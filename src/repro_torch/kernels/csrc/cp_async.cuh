@@ -1,11 +1,9 @@
-// cp.async copies into shared memory, shared by the kernels that stage
-// their operands before they compute (fused_read.cu, key_search.cu,
-// log_replay.cu).  Node-image rows are 1,273 words at the default
-// geometry, a 5,092-byte stride, so only 4-byte copies are aligned for
-// every row; 16-byte copies serve operands whose rows are 16-byte aligned
-// (key_search.cu's block mode).  A thread sees the words it copied itself
-// after cp_async_wait_all; other threads of the block see them after a
-// barrier.
+// 4-byte cp.async copies into shared memory, shared by the kernels that
+// stage rows word by word (fused_read.cu, key_search.cu, log_replay.cu):
+// node-image rows are 1,273 words at the default geometry, a 5,092-byte
+// stride, so only 4-byte copies are aligned for every row.  A thread sees
+// the words it copied itself after cp_async_wait_all; other threads of the
+// block see them after a barrier.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,13 +11,6 @@
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-// Both addresses 16-byte aligned; cached in L2 only.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
 }
 

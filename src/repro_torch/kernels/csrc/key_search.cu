@@ -45,18 +45,14 @@
 // past the count are copied too: they are words of the request's own row,
 // inside the bounds the wrapper checks.
 //
-// Block mode: the keys are a contiguous [B, N, KW] tensor.  Where the
-// wrapper finds them 16-byte aligned and KW % 4 == 0 the candidates'
-// lanes are copied as 16-byte vectors, so one copy instruction of the warp
-// reads 512 consecutive bytes (a lane reading its own candidate's words
-// at a 32-byte stride would touch 32 sectors an instruction); otherwise a
-// 4-byte instance of the same kernel copies them word by word.  A
-// candidate's lanes, length and valid word lie side by side: at a stride
-// of an odd number of 16-byte units with 16-byte copies, read back as
-// 16-byte vectors (8 lanes of a quarter-warp on distinct banks), and at
-// an odd stride of words with 4-byte copies.  Loading valid[c] first and
-// the lanes only where it is set, exiting at the first lane that
-// differs, would make each warp wait on a chain of dependent round trips.
+// Block mode: the keys are a contiguous [B, N, KW] tensor, copied word
+// by word, so one copy instruction of the warp reads 128 consecutive
+// bytes of the request's block whatever its alignment.  A candidate's
+// lanes, length and valid word lie side by side at an odd stride of
+// words.  Loading valid[c] first and the lanes only where it is set,
+// exiting at the first lane that differs, would make each warp wait on a
+// chain of dependent round trips.  16-byte copies of aligned keys were
+// no faster at a batch of 256 and slower where bytes bind the call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -146,21 +142,15 @@ __global__ void key_search_image_kernel(const uint32_t* __restrict__ q,
 
 // Block mode.  A pass stages `chunk` candidates' lanes [w0, w0 + span)
 // and the query's.  A warp's buffer: the query's lanes of the pass, its
-// length at word `span`, padded to a whole 16-byte unit, then the
-// candidates at `block_stride` words apart, each its lanes of the pass,
-// its length (word `span`) and its valid word (`span` + 1).  With 16-byte
-// copies (VEC == 4) the stride is an odd number of 16-byte units, so 8
-// lanes reading candidates lane, lane + 32, ... as 16-byte vectors hit
-// distinct banks; with 4-byte copies it is an odd number of words.
-__host__ __device__ constexpr int block_head(int span) {
-  return (span + 4) & ~3;
+// length at word `span`, then the candidates at `block_stride` words
+// apart, each its lanes of the pass, its length (word `span`) and its
+// valid word (`span` + 1), padded to an odd stride so that the lanes of a
+// warp reading candidates lane, lane + 32, ... hit distinct banks.
+__host__ __device__ constexpr int block_stride(int span) {
+  return (span + 2) | 1;
 }
-__host__ __device__ constexpr int block_stride(int span, int vec) {
-  return vec == 4 ? 4 * (((span + 5) / 4) | 1) : (span + 2) | 1;
-}
-__host__ __device__ constexpr int block_warp_words(int span, int vec,
-                                                   int chunk) {
-  return (block_head(span) + chunk * block_stride(span, vec) + 3) & ~3;
+__host__ __device__ constexpr int block_warp_words(int span, int chunk) {
+  return span + 1 + chunk * block_stride(span);
 }
 
 // One warp per request.  KW_T > 0 fixes the key width at compile time
@@ -168,10 +158,8 @@ __host__ __device__ constexpr int block_warp_words(int span, int vec,
 // the lanes a pass from `span`.  A key wider than one pass (span < KW)
 // is compared a pass of lanes at a time, the highest lanes first, each
 // lane carrying its one candidate's verdict (the plan then takes at most
-// 32 candidates a chunk).  VEC == 4 copies the candidates' lanes as
-// 16-byte vectors (keys 16-byte aligned, KW % 4 == 0 and span % 4 == 0:
-// the launcher checks), VEC == 1 as words.
-template <int KW_T, int VEC>
+// 32 candidates a chunk).
+template <int KW_T>
 __global__ void key_search_kernel(const uint32_t* __restrict__ q,
                                   const int* __restrict__ qlen,
                                   const uint32_t* __restrict__ keys,
@@ -179,16 +167,15 @@ __global__ void key_search_kernel(const uint32_t* __restrict__ q,
                                   const int* __restrict__ valid,
                                   int* __restrict__ out, int B, int N,
                                   int kw_rt, int chunk, int span) {
-  extern __shared__ uint4 smem4[];      // 16-byte aligned
+  extern __shared__ uint32_t smem[];
   const int KW = KW_T > 0 ? KW_T : kw_rt;
   const int SP = KW_T > 0 ? KW_T : span;
-  const int ST = block_stride(SP, VEC);
+  const int ST = block_stride(SP);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;                   // uniform across the warp
-  uint32_t* s = reinterpret_cast<uint32_t*>(smem4) +
-                warp * block_warp_words(SP, VEC, chunk);
-  uint32_t* cand = s + block_head(SP);
+  uint32_t* s = smem + warp * block_warp_words(SP, chunk);
+  uint32_t* cand = s + SP + 1;
   const uint32_t* qb = q + (size_t)b * KW;
   const int* lb = klens + (size_t)b * N;
   const int* vb = valid + (size_t)b * N;
@@ -206,17 +193,9 @@ __global__ void key_search_kernel(const uint32_t* __restrict__ q,
       for (int w = lane; w <= ws; w += 32)
         cp_async4(s + (w < ws ? w : SP),
                   w < ws ? qb + w0 + w : (const uint32_t*)qlen + b);
-      if constexpr (VEC == 4) {
-        const int V = ws / 4;           // vectors a candidate
-        for (int v = lane; v < n * V; v += 32) {
-          const int i = v / V, p = v % V;
-          cp_async16(cand + i * ST + 4 * p, kc + (size_t)i * KW + w0 + 4 * p);
-        }
-      } else {
-        for (int w = lane; w < n * ws; w += 32) {
-          const int i = w / ws, p = w % ws;
-          cp_async4(cand + i * ST + p, kc + (size_t)i * KW + w0 + p);
-        }
+      for (int w = lane; w < n * ws; w += 32) {
+        const int i = w / ws, p = w % ws;
+        cp_async4(cand + i * ST + p, kc + (size_t)i * KW + w0 + p);
       }
       if (top)
         for (int i = lane; i < n; i += 32) {
@@ -234,43 +213,13 @@ __global__ void key_search_kernel(const uint32_t* __restrict__ q,
       }
       for (int i = lane; i < n; i += 32) {
         const uint32_t* c = cand + i * ST;
-        int klen, ok;                   // length and valid word
-        if constexpr (VEC == 4) {       // one 16-byte read, no conflict
-          const uint4 t = *reinterpret_cast<const uint4*>(c + SP);
-          klen = (int)t.x;
-          ok = (int)t.y;
-        } else {
-          klen = (int)c[SP];
-          ok = (int)c[SP + 1];
-        }
-        bool leq = top ? klen <= ql : carry;   // where every lane is equal
+        const int ok = (int)c[SP + 1];  // the valid word
+        // where every lane is equal: the length decides
+        bool leq = top ? (int)c[SP] <= ql : carry;
         if constexpr (KW_T > 0) {       // the first difference decides
-          uint32_t k[KW_T];
-          if constexpr (VEC == 4) {
-#pragma unroll
-            for (int p = 0; p < KW_T / 4; ++p) {
-              const uint4 t = reinterpret_cast<const uint4*>(c)[p];
-              k[4 * p] = t.x;
-              k[4 * p + 1] = t.y;
-              k[4 * p + 2] = t.z;
-              k[4 * p + 3] = t.w;
-            }
-          } else {
-#pragma unroll
-            for (int w = 0; w < KW_T; ++w) k[w] = c[w];
-          }
 #pragma unroll
           for (int w = KW_T - 1; w >= 0; --w)
-            if (k[w] != qr[w]) leq = k[w] < qr[w];
-        } else if constexpr (VEC == 4) {
-          for (int p = ws / 4 - 1; p >= 0; --p) {
-            const uint4 t = reinterpret_cast<const uint4*>(c)[p];
-            const uint32_t* qp = s + 4 * p;
-            if (t.w != qp[3]) leq = t.w < qp[3];
-            if (t.z != qp[2]) leq = t.z < qp[2];
-            if (t.y != qp[1]) leq = t.y < qp[1];
-            if (t.x != qp[0]) leq = t.x < qp[0];
-          }
+            if (c[w] != qr[w]) leq = c[w] < qr[w];
         } else {
           for (int w = ws - 1; w >= 0; --w)
             if (c[w] != s[w]) leq = c[w] < s[w];
@@ -285,15 +234,14 @@ __global__ void key_search_kernel(const uint32_t* __restrict__ q,
   if (lane == 0) out[b] = best;
 }
 
-template <int KW_T, int VEC>
+template <int KW_T>
 void launch_block(const void* q, const void* qlen, const void* keys,
                   const void* klens, const void* valid, void* out, int B,
                   int N, int KW, int warps, int chunk, int span,
                   cudaStream_t st) {
-  const size_t smem =
-      sizeof(uint32_t) * warps * block_warp_words(span, VEC, chunk);
-  key_search_kernel<KW_T, VEC><<<(B + warps - 1) / warps, 32 * warps, smem,
-                                 st>>>(
+  const size_t smem = sizeof(uint32_t) * warps * block_warp_words(span, chunk);
+  key_search_kernel<KW_T><<<(B + warps - 1) / warps, 32 * warps, smem,
+                            st>>>(
       (const uint32_t*)q, (const int*)qlen, (const uint32_t*)keys,
       (const int*)klens, (const int*)valid, (int*)out, B, N, KW, chunk,
       span);
@@ -304,28 +252,20 @@ void launch_block(const void* q, const void* qlen, const void* keys,
 extern "C" int key_search_launch(const void* q, const void* qlen,
                                  const void* keys, const void* klens,
                                  const void* valid, void* out, int B, int N,
-                                 int KW, int vec, int warps, int chunk,
-                                 int span, void* stream) {
+                                 int KW, int warps, int chunk, int span,
+                                 void* stream) {
   if (B <= 0) return 0;
   if (KW < 1 || N < 1 || chunk < 1 || warps < 1 || warps > kMaxWarps ||
       span < 1 || span > KW || (span < KW && chunk > 32) ||
-      (vec != 1 && vec != 4) ||
-      (vec == 4 && (KW % 4 || span % 4 || (uintptr_t)keys % 16)) ||
-      block_warp_words(span, vec, chunk) > kWarpWords)
+      block_warp_words(span, chunk) > kWarpWords)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (KW == 8 && span == 8 && vec == 4)
-    launch_block<8, 4>(q, qlen, keys, klens, valid, out, B, N, KW, warps,
-                       chunk, span, st);
-  else if (KW == 8 && span == 8)
-    launch_block<8, 1>(q, qlen, keys, klens, valid, out, B, N, KW, warps,
-                       chunk, span, st);
-  else if (vec == 4)
-    launch_block<0, 4>(q, qlen, keys, klens, valid, out, B, N, KW, warps,
-                       chunk, span, st);
+  if (KW == 8 && span == 8)
+    launch_block<8>(q, qlen, keys, klens, valid, out, B, N, KW, warps,
+                    chunk, span, st);
   else
-    launch_block<0, 1>(q, qlen, keys, klens, valid, out, B, N, KW, warps,
-                       chunk, span, st);
+    launch_block<0>(q, qlen, keys, klens, valid, out, B, N, KW, warps,
+                    chunk, span, st);
   return (int)cudaGetLastError();
 }
 

@@ -32,17 +32,18 @@
 //   - the first term of a log slot has a closed form: 0 below L, N at
 //     INT32_MAX, min(live sorted, (rank_l - L) / (L + 1) + 1) between.
 // That is O(T * L) compares a leaf (1,280 at N = 64, L = 16), all against
-// the L log ranks.  The register instance (L <= 32) gives a leaf a group
-// of G lanes (a half-warp or a warp): it loads nitems, nlog and lane l's
-// back pointer and hint in one burst, runs the shift register in
-// registers with hint[j] broadcast by __shfl_sync (no shared memory, no
-// barrier), forms lane l's rank, broadcasts all L ranks into every lane's
-// registers, and counts there; unused ranks are INT32_MAX and count
-// nothing.  The generic instance (L > 32, one warp a leaf) keeps the
-// hints, positions and back pointers in shared memory, copied in one
-// burst of 4-byte cp.async (cp_async.cuh), and counts the same way from
-// there.  The pairs (rank, slot) are distinct, so the positions are a
-// permutation of 0..T-1 for ANY input and no write leaves the leaf's row.
+// the L log ranks.  The register instance (L <= 16, the stores' log
+// blocks) gives a leaf a half-warp, two leaves a warp: it loads nitems,
+// nlog and lane l's back pointer and hint in one burst, runs the shift
+// register in registers with hint[j] broadcast by __shfl_sync (no shared
+// memory, no barrier), forms lane l's rank, broadcasts all L ranks into
+// every lane's registers, and counts there; unused ranks are INT32_MAX
+// and count nothing.  The generic instance (L > 16, one warp a leaf)
+// keeps the hints, positions and back pointers in shared memory, copied
+// in one burst of 4-byte cp.async (cp_async.cuh), and counts the same
+// way from there; no store's log block takes it.  The pairs (rank,
+// slot) are distinct, so the positions are a permutation of 0..T-1 for
+// ANY input and no write leaves the leaf's row.
 // Rank arithmetic wraps as int32 does in torch and JAX (computed
 // unsigned, never signed overflow); ranks compare as signed int32.  No
 // pointer passes through shared memory.
@@ -64,8 +65,9 @@ __device__ __forceinline__ int sorted_before(int r, int nv, int N, int L) {
   return min(nv, (int)((unsigned)(r - L) / (unsigned)(L + 1)) + 1);
 }
 
-// Register instance: G lanes a leaf (16 or 32), L <= G.
-template <int G>
+// Register instance: a half-warp a leaf, L <= kG.
+constexpr int kG = 16;
+
 __global__ void leaf_merge_kernel(const int* __restrict__ nitems,
                                   const int* __restrict__ nlog,
                                   const int* __restrict__ backptr,
@@ -73,8 +75,8 @@ __global__ void leaf_merge_kernel(const int* __restrict__ nitems,
                                   int* __restrict__ perm,
                                   int* __restrict__ valid, int B, int N,
                                   int L) {
-  const int gl = threadIdx.x & (G - 1);       // lane within the leaf's group
-  const int b = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  const int gl = threadIdx.x & (kG - 1);      // lane within the leaf's group
+  const int b = blockIdx.x * (blockDim.x / kG) + threadIdx.x / kG;
   const bool here = b < B;  // a group past B still joins the shuffles
   // ---- the burst: counts, and lane l's back pointer and hint
   int ni = 0, nl = 0, bp = 0, h = 0;
@@ -89,7 +91,7 @@ __global__ void leaf_merge_kernel(const int* __restrict__ nitems,
   // ---- 1. the shift register: lane l holds entry l's position
   int pos = 0;
   for (int j = 0; j < L; ++j) {               // L is uniform: every lane
-    const int hj = __shfl_sync(kFull, h, j, G);
+    const int hj = __shfl_sync(kFull, h, j, kG);
     if (j < nl) {
       if (gl < j && pos >= hj) pos = (int)((unsigned)pos + 1u);
       if (gl == j) pos = hj;
@@ -100,28 +102,28 @@ __global__ void leaf_merge_kernel(const int* __restrict__ nitems,
   const int rk = gl < L && gl < nl
                      ? (int)((unsigned)bp * stride + (unsigned)pos)
                      : INT_MAX;
-  int r[G];
+  int r[kG];
 #pragma unroll
-  for (int m = 0; m < G; ++m) r[m] = __shfl_sync(kFull, rk, m, G);
+  for (int m = 0; m < kG; ++m) r[m] = __shfl_sync(kFull, rk, m, kG);
   if (!here) return;
   // ---- 3. positions, O(T * L)
   const int T = N + L;
   const int nv = min(max(ni, 0), N);          // live sorted items
   int* pb = perm + (size_t)b * T;
   int* vb = valid + (size_t)b * T;
-  for (int i = gl; i < N; i += G) {
+  for (int i = gl; i < N; i += kG) {
     const int s = i < nv ? (int)((unsigned)i * stride + (unsigned)L)
                          : INT_MAX;
     int c = i;
 #pragma unroll
-    for (int m = 0; m < G; ++m) c += r[m] < s;
+    for (int m = 0; m < kG; ++m) c += r[m] < s;
     pb[c] = i;
     vb[i] = i < nv;
   }
   if (gl < L) {
     int c = sorted_before(rk, nv, N, L);
 #pragma unroll
-    for (int m = 0; m < G; ++m)
+    for (int m = 0; m < kG; ++m)
       c += (r[m] < rk) | ((r[m] == rk) & (m < gl));
     pb[c] = N + gl;
     vb[N + gl] = gl < nl;
@@ -191,20 +193,11 @@ __global__ void leaf_merge_kernel_generic(const int* __restrict__ nitems,
   }
 }
 
-template <int G>
-void launch_registers(const int* nitems, const int* nlog, const int* backptr,
-                      const int* hints, int* perm, int* valid, int B, int N,
-                      int L, int warps, cudaStream_t st) {
-  const int leaves = warps * 32 / G;          // leaves a block
-  leaf_merge_kernel<G><<<(B + leaves - 1) / leaves, 32 * warps, 0, st>>>(
-      nitems, nlog, backptr, hints, perm, valid, B, N, L);
-}
-
 }  // namespace
 
-// group: lanes a leaf (16 or 32, with L <= group), or 0 for the generic
-// instance (one warp a leaf, 12 * L bytes of shared memory a warp);
-// warps: warps a block.
+// group: 16 for the register instance (a half-warp a leaf, L <= 16), or 0
+// for the generic instance (one warp a leaf, 12 * L bytes of shared memory
+// a warp); warps: warps a block.
 extern "C" int leaf_merge_launch(const void* nitems, const void* nlog,
                                  const void* backptr, const void* hints,
                                  void* perm, void* valid, int B, int N, int L,
@@ -212,19 +205,19 @@ extern "C" int leaf_merge_launch(const void* nitems, const void* nlog,
   if (B <= 0) return 0;
   const size_t smem = group ? 0 : 12 * (size_t)warps * L;
   if (N < 0 || L < 0 || warps < 1 || warps > 8 ||
-      (group != 0 && group != 16 && group != 32) || (group && L > group) ||
-      smem > 48 * 1024)
+      (group != 0 && group != kG) || (group && L > kG) || smem > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int *ni = (const int*)nitems, *nl = (const int*)nlog,
             *bp = (const int*)backptr, *h = (const int*)hints;
   int *pm = (int*)perm, *vd = (int*)valid;
-  if (group == 16)
-    launch_registers<16>(ni, nl, bp, h, pm, vd, B, N, L, warps, st);
-  else if (group == 32)
-    launch_registers<32>(ni, nl, bp, h, pm, vd, B, N, L, warps, st);
-  else
+  if (group) {
+    const int leaves = warps * 32 / kG;       // leaves a block
+    leaf_merge_kernel<<<(B + leaves - 1) / leaves, 32 * warps, 0, st>>>(
+        ni, nl, bp, h, pm, vd, B, N, L);
+  } else {
     leaf_merge_kernel_generic<<<(B + warps - 1) / warps, 32 * warps, smem,
                                 st>>>(ni, nl, bp, h, pm, vd, B, N, L);
+  }
   return (int)cudaGetLastError();
 }

@@ -13,9 +13,7 @@ big-endian u32 lanes; the kernel compares them as unsigned words.
 Both modes stage each request's query and candidate block (with the
 image's count word, or the valid mask) in a warp's shared-memory buffer
 in one burst before they compare; ``image_plan`` and ``block_plan`` size
-that buffer, and a block too large for it is searched in chunks.  The
-block mode copies the candidates' lanes as 16-byte vectors where the
-keys are 16-byte aligned and ``KW % 4 == 0``, else word by word.
+that buffer, and a block too large for it is searched in chunks.
 """
 from __future__ import annotations
 
@@ -29,9 +27,8 @@ from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # q, qlen, keys, klens, valid, out, B, N, KW, vec, warps, chunk, span,
-    # stream
-    "key_search_launch": [_P] * 6 + [_I] * 7 + [_P],
+    # q, qlen, keys, klens, valid, out, B, N, KW, warps, chunk, span, stream
+    "key_search_launch": [_P] * 6 + [_I] * 6 + [_P],
     # q, qlen, img, out, B, IW, keys_off, lens_off, count_off, n_keys, KW,
     # warps, chunk, stream
     "key_search_image_launch": [_P] * 4 + [_I] * 9 + [_P],
@@ -92,19 +89,16 @@ def image_plan(n_keys: int, key_words: int) -> ImagePlan:
 @dataclasses.dataclass(frozen=True)
 class BlockPlan:
     """How the block-mode kernel stages one request's ``n_keys``
-    candidates of ``key_words`` lanes: ``vec`` 4 copies their lanes as
-    16-byte vectors, 1 word by word; ``warps`` requests a block.  A pass
+    candidates of ``key_words`` lanes, ``warps`` requests a block.  A pass
     stages ``chunk`` candidates' lanes ``[w0, w0 + span)``: each warp's
     buffer holds the query's lanes of the pass and its length in ``head``
     words, then the candidates at ``stride`` words apart (the lanes, the
-    length, the valid word, a pad: an odd number of 16-byte units with
-    ``vec`` 4, of words with ``vec`` 1).  The block takes ``chunks``
-    chunks of ``spans`` passes each (one, unless a key outgrows the
-    buffer: then at most 32 candidates a chunk).  ``smem_bytes`` is the
+    length, the valid word, a pad to an odd stride).  The block takes
+    ``chunks`` chunks of ``spans`` passes each (one, unless a key outgrows
+    the buffer: then at most 32 candidates a chunk).  ``smem_bytes`` is the
     block's shared memory."""
     n_keys: int
     key_words: int
-    vec: int
     warps: int
     chunk: int
     chunks: int
@@ -116,37 +110,34 @@ class BlockPlan:
     smem_bytes: int
 
 
-def _block_words(span: int, vec: int, chunk: int) -> tuple:
+def _block_words(span: int, chunk: int) -> tuple:
     """(head, stride, warp words) of a pass (key_search.cu
-    ``block_head``, ``block_stride``, ``block_warp_words``)."""
-    head = (span + 4) & ~3
-    stride = 4 * (((span + 5) // 4) | 1) if vec == 4 else (span + 2) | 1
-    return head, stride, (head + chunk * stride + 3) & ~3
+    ``block_stride``, ``block_warp_words``)."""
+    head, stride = span + 1, (span + 2) | 1
+    return head, stride, head + chunk * stride
 
 
 @functools.lru_cache(maxsize=64)
-def block_plan(n_keys: int, key_words: int, aligned: bool) -> BlockPlan:
-    """The block-mode kernel's plan: 16-byte copies where the keys are
-    ``aligned`` to 16 bytes and ``key_words % 4 == 0``; the whole key a
-    pass and the whole block in one chunk where they fit a warp's
-    ``BLOCK_WARP_WORDS`` (the default geometry's sorted block, 64 keys of
-    8 lanes, takes 780 words), else the most candidates that fit; a key
-    too wide for one candidate beside the query is taken 32 candidates a
-    chunk, in passes of the most lanes that fit."""
+def block_plan(n_keys: int, key_words: int) -> BlockPlan:
+    """The block-mode kernel's plan: the whole key a pass and the whole
+    block in one chunk where they fit a warp's ``BLOCK_WARP_WORDS`` (the
+    default geometry's sorted block, 64 keys of 8 lanes, takes 713
+    words), else the most candidates that fit; a key too wide for one
+    candidate beside the query is taken 32 candidates a chunk, in passes
+    of the most lanes that fit."""
     if n_keys < 1 or key_words < 1:
         raise ValueError(f"need n_keys >= 1 and key_words >= 1, got "
                          f"{n_keys} and {key_words}")
-    vec = 4 if aligned and key_words % 4 == 0 else 1
-    head, stride, _ = _block_words(key_words, vec, 0)
+    head, stride, _ = _block_words(key_words, 0)
     room = (BLOCK_WARP_WORDS - head) // stride
     if room >= 1:
         span, chunk = key_words, min(n_keys, room)
     else:
         chunk = min(n_keys, 32)
-        span = max(s for s in range(vec, key_words, vec)
-                   if _block_words(s, vec, chunk)[2] <= BLOCK_WARP_WORDS)
-    head, stride, warp_words = _block_words(span, vec, chunk)
-    return BlockPlan(n_keys, key_words, vec, BLOCK_WARPS, chunk,
+        span = max(s for s in range(1, key_words)
+                   if _block_words(s, chunk)[2] <= BLOCK_WARP_WORDS)
+    head, stride, warp_words = _block_words(span, chunk)
+    return BlockPlan(n_keys, key_words, BLOCK_WARPS, chunk,
                      -(-n_keys // chunk), span, -(-key_words // span), head,
                      stride, warp_words, 4 * BLOCK_WARPS * warp_words)
 
@@ -173,7 +164,7 @@ def key_search(q: torch.Tensor, qlen: torch.Tensor, keys: torch.Tensor,
     if N < 1 or KW < 1:
         raise ValueError(f"need at least one candidate of one lane, got "
                          f"keys {tuple(keys.shape)}")
-    plan = block_plan(N, KW, keys.data_ptr() % 16 == 0)
+    plan = block_plan(N, KW)
     out = torch.empty(B, dtype=torch.int32, device=keys.device)
     if B == 0:
         return out
@@ -182,8 +173,8 @@ def key_search(q: torch.Tensor, qlen: torch.Tensor, keys: torch.Tensor,
         err = build.launcher("key_search", "key_search_launch",
                              _ARGTYPES["key_search_launch"])(
             q.data_ptr(), qlen.data_ptr(), keys.data_ptr(), klens.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), B, N, KW, plan.vec,
-            plan.warps, plan.chunk, plan.span, stream)
+            valid.data_ptr(), out.data_ptr(), B, N, KW, plan.warps,
+            plan.chunk, plan.span, stream)
     build.check(err, "key_search")
     build.LAUNCHES["key_search"] += 1
     return out

@@ -5,10 +5,9 @@ and unsorted log block without comparing keys: the log block's order
 hints drive a shift-register sort, each log entry's back pointer places it
 before a sorted item, and the merged ranks give the emission permutation.
 ``csrc/leaf_merge.cu`` places each slot by an O(T * L) count against the
-log ranks; ``merge_plan`` picks its instance: up to 32 log entries a
-group of lanes holds them in registers (16 lanes a leaf up to 16
-entries, 32 up to 32), beyond that one warp a leaf keeps them in shared
-memory.
+log ranks; ``merge_plan`` picks its instance: up to 16 log entries (the
+stores' log blocks) a half-warp a leaf holds them in registers, beyond
+that one warp a leaf keeps them in shared memory.
 """
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ from . import build
 #: a leaf, two leaves a block, within the 48 KB a block gets without
 #: opting in
 MAX_SHARED_WORDS = 3072
-#: warps a block of the register instances
+#: warps a block of the register instance
 MERGE_WARPS = 4
 #: warps (leaves) a block of the generic instance
 GENERIC_WARPS = 2
@@ -39,8 +38,8 @@ _ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
 @dataclasses.dataclass(frozen=True)
 class MergePlan:
     """How ``csrc/leaf_merge.cu`` takes leaves of ``node_cap`` sorted and
-    ``log_cap`` log slots: ``group`` lanes a leaf holding its log entries
-    and ranks in registers (16 or 32, at least ``log_cap``), or 0 for the
+    ``log_cap`` log slots: ``group`` 16 lanes a leaf holding its log
+    entries and ranks in registers (``log_cap`` <= 16), or 0 for the
     generic instance (one warp a leaf, the entries in shared memory);
     ``warps`` a block, ``leaves`` a block; ``smem_bytes`` is the block's
     shared memory."""
@@ -55,18 +54,16 @@ class MergePlan:
 @functools.lru_cache(maxsize=64)
 def merge_plan(node_cap: int, log_cap: int) -> MergePlan:
     """The merge's plan: a half-warp a leaf up to 16 log entries (two
-    leaves a warp), a warp up to 32, the generic instance beyond."""
+    leaves a warp), the generic instance beyond."""
     if node_cap < 0 or log_cap < 0 \
             or node_cap + 2 * log_cap > MAX_SHARED_WORDS:
         raise ValueError(f"node_cap={node_cap}, log_cap={log_cap}: the "
                          f"kernel takes node_cap + 2 * log_cap <= "
                          f"{MAX_SHARED_WORDS}")
-    if log_cap > 32:
+    if log_cap > 16:
         return MergePlan(node_cap, log_cap, 0, GENERIC_WARPS, GENERIC_WARPS,
                          12 * GENERIC_WARPS * log_cap)
-    group = 16 if log_cap <= 16 else 32
-    return MergePlan(node_cap, log_cap, group, MERGE_WARPS,
-                     MERGE_WARPS * 32 // group, 0)
+    return MergePlan(node_cap, log_cap, 16, MERGE_WARPS, 2 * MERGE_WARPS, 0)
 
 
 def leaf_merge(nitems: torch.Tensor, nlog: torch.Tensor,

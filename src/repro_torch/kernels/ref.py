@@ -140,11 +140,9 @@ def block_stage_words(plan):
     the length at ``span``, candidate i of the chunk at ``head + i *
     stride``, its lanes of the pass, then its length and valid word at
     ``span`` and ``span + 1`` (copied in the chunk's first pass only).
-    Key words come in copy order: each ``plan.vec`` of them in a row are
-    one copy (16 bytes with ``vec`` 4), issued by one lane.  Lane l issues
-    the l-th, (l + 32)-th, ... copy of each of the kernel's loops."""
-    KW, SP, ST, H, V = (plan.key_words, plan.span, plan.stride, plan.head,
-                        plan.vec)
+    Lane l issues the l-th, (l + 32)-th, ... copy of each of the kernel's
+    loops."""
+    KW, SP, ST, H = plan.key_words, plan.span, plan.stride, plan.head
     out = []
     for c in range(plan.chunks):
         i0 = c * plan.chunk
@@ -158,7 +156,7 @@ def block_stage_words(plan):
                       torch.where(w < ws, w, SP))]
             k = torch.arange(n * ws)            # word k of the pass's copies
             i, p = k // ws, k % ws
-            parts.append(((k // V) % 32, torch.full_like(k, STAGE_KEY),
+            parts.append((k % 32, torch.full_like(k, STAGE_KEY),
                           (i0 + i) * KW + w0 + p, H + i * ST + p))
             if w0 + SP >= KW:
                 j = torch.arange(n)

@@ -762,8 +762,8 @@ def _merge_case(B, N, L, seed):
 
 #: (n_keys, key_words) of the block-mode search sweep: every N of
 #: {3, 64, 80, 300} with every KW of {1, 3, 4, 8, 12} (8 the stores'
-#: width, 4 and 12 the generic 16-byte route, the others 4-byte copies),
-#: then keys too wide for one candidate beside the query (passes of lanes)
+#: width, the others the generic instance), then keys too wide for one
+#: candidate beside the query (passes of lanes)
 BLOCK_SEARCH = [(n, kw) for n in (3, 64, 80, 300) for kw in (1, 3, 4, 8, 12)] \
     + [(7, 1022), (40, 1500)]
 
@@ -789,8 +789,8 @@ def _offset_view(t):
     return view
 
 
-#: (B, N, L) of the reference's leaf-merge sweep and the register
-#: instance's edges (L = 32 in a warp, 33 the generic instance)
+#: (B, N, L) of the reference's leaf-merge sweep and more leaves of the
+#: generic instance (L = 32 and 33, past the register instance's 16)
 MERGE_SWEEP = [(4, 8, 4), (64, 64, 16), (33, 16, 8), (9, 40, 40),
                (20, 64, 32), (20, 64, 33)]
 
@@ -858,11 +858,10 @@ def test_key_search_kernel_matches_plain(cuda, B, N, KW, lane_hi):
 
 @pytest.mark.parametrize("case", [f"{n}x{kw}" for n, kw in BLOCK_SEARCH])
 def test_key_search_block_kernel_sweep(cuda, case):
-    """The block-mode kernel at every N and KW of the sweep (the 16-byte
-    route where KW % 4 == 0, passes of lanes for the widest keys), valid
-    masks all zero, full and not a prefix; then the same keys at a 4-byte
-    offset, which take the 4-byte instance.  One launch each, equal to the
-    plain version."""
+    """The block-mode kernel at every N and KW of the sweep (passes of
+    lanes for the widest keys), valid masks all zero, full and not a
+    prefix; then the same keys in a view at a 4-byte offset.  One launch
+    each, equal to the plain version."""
     n, kw = map(int, case.split("x"))
     args = [_i32(a, cuda) for a in _block_case(n, kw)]
     want = ref.key_search_ref(*args)
@@ -877,7 +876,8 @@ def test_key_search_block_kernel_sweep(cuda, case):
 @pytest.mark.parametrize("B", [1, 255, 256, 257])
 def test_key_search_block_kernel_batch_edges(cuda, B):
     """Batches around the smoke's 256 at the stores' block (64 keys of 8
-    lanes), by both routes: the last block of warps partly empty."""
+    lanes), the keys aligned and at a 4-byte offset: the last block of
+    warps partly empty."""
     args = [_i32(a, cuda) for a in _search_case(B, 64, 8, B, 2 ** 32)]
     want = ref.key_search_ref(*args)
     for keys in (args[2], _offset_view(args[2])):
@@ -959,8 +959,8 @@ def test_leaf_merge_kernel_matches_plain(cuda, B, N, L, wild):
 @pytest.mark.parametrize("B,N,L", MERGE_SWEEP)
 @pytest.mark.parametrize("wild", [False, True])
 def test_leaf_merge_kernel_instances(cuda, B, N, L, wild):
-    """Every instance of the merge (a half-warp a leaf, a warp, the
-    generic one) on the reference's leaves and on wild ones
+    """Both instances of the merge (a half-warp a leaf, the generic one)
+    on the reference's leaves and on wild ones
     (``_wild_merge_case``: a live rank of INT32_MAX, one equal to a sorted
     rank, two log ranks equal, ranks that wrap, counts past the caps and
     negative).  One launch, equal to the plain version in all T

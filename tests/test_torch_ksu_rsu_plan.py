@@ -1,8 +1,7 @@
 """The plans of the block-mode floor search and the leaf merge, and their
 CPU mirrors, held to the plain versions and to the JAX reference.
 ``key_search.block_plan`` sizes the shared-memory buffer into which a
-warp of ``csrc/key_search.cu`` stages one request's query and candidates
-(16-byte copies where the keys are aligned and ``KW % 4 == 0``);
+warp of ``csrc/key_search.cu`` stages one request's query and candidates;
 ``ref.block_stage_words`` walks its copies and
 ``ref.key_search_block_mirror`` searches through them, chunk by chunk and
 pass by pass.  ``leaf_merge.merge_plan`` picks the merge's instance and
@@ -37,62 +36,50 @@ def _t(a):
 
 @pytest.mark.parametrize("key_words", [1, 2, 3, 4, 5, 8, 12, 16, 677, 1020,
                                        1021, 1022, 1024, 5000])
-@pytest.mark.parametrize("aligned", [True, False])
-def test_block_plan_routes_and_budgets(key_words, aligned):
-    """16-byte copies only where the keys are aligned and ``KW % 4 == 0``;
-    a stride of an odd number of 16-byte units (16-byte route) or of
-    words (4-byte route), room for the lanes, length and valid word; the
-    whole key a pass where one candidate fits beside the query, else at
-    most 32 candidates a chunk; every buffer within the warp's words and
-    the block under 48 KB; every key width the wrapper takes is planned."""
-    for n_keys in (1, 3, 64, 300, 100_000):
-        p = key_search.block_plan(n_keys, key_words, aligned)
-        assert p.vec == (4 if aligned and key_words % 4 == 0 else 1)
-        if p.vec == 4:
-            assert p.stride % 4 == 0 and (p.stride // 4) % 2 == 1
-            assert p.span % 4 == 0 and p.head % 4 == 0
-        else:
-            assert p.stride % 2 == 1
-        assert p.stride >= p.span + 2 and p.head >= p.span + 1
-        assert 1 <= p.span <= key_words
-        assert p.spans * p.span >= key_words > (p.spans - 1) * p.span
-        assert 1 <= p.chunk <= n_keys
-        assert p.chunks * p.chunk >= n_keys > (p.chunks - 1) * p.chunk
-        if p.span < key_words:
-            assert p.chunk <= 32
-        assert p.head + p.chunk * p.stride <= p.warp_words \
-            <= key_search.BLOCK_WARP_WORDS
-        assert p.warp_words % 4 == 0
-        assert 1 <= p.warps <= 4
-        assert p.smem_bytes == 4 * p.warps * p.warp_words <= SMEM_LIMIT
+@pytest.mark.parametrize("n_keys", [1, 3, 64, 300, 100_000])
+def test_block_plan_routes_and_budgets(key_words, n_keys):
+    """An odd stride of words, room for the lanes, length and valid word;
+    the whole key a pass where one candidate fits beside the query, else
+    at most 32 candidates a chunk; every buffer within the warp's words
+    and the block under 48 KB; every key width the wrapper takes is
+    planned."""
+    p = key_search.block_plan(n_keys, key_words)
+    assert p.stride % 2 == 1
+    assert p.stride >= p.span + 2 and p.head == p.span + 1
+    assert 1 <= p.span <= key_words
+    assert p.spans * p.span >= key_words > (p.spans - 1) * p.span
+    assert 1 <= p.chunk <= n_keys
+    assert p.chunks * p.chunk >= n_keys > (p.chunks - 1) * p.chunk
+    if p.span < key_words:
+        assert p.chunk <= 32
+    assert p.head + p.chunk * p.stride == p.warp_words \
+        <= key_search.BLOCK_WARP_WORDS
+    assert 1 <= p.warps <= 4
+    assert p.smem_bytes == 4 * p.warps * p.warp_words <= SMEM_LIMIT
 
 
 def test_block_plan_at_the_stores_blocks():
     """The default geometry's sorted block (64 keys of 8 lanes) takes one
-    chunk and one pass: 16-byte copies at a stride of 12 words (780 words
-    a warp), or 4-byte copies at 11 (716) for keys at a 4-byte offset."""
-    p = key_search.block_plan(64, 8, True)
-    assert (p.vec, p.chunk, p.chunks, p.span, p.spans, p.head, p.stride,
-            p.warp_words) == (4, 64, 1, 8, 1, 12, 12, 780)
-    p = key_search.block_plan(64, 8, False)
-    assert (p.vec, p.chunks, p.stride, p.warp_words) == (1, 1, 11, 716)
-    assert key_search.block_plan(300, 8, True).chunks == 2
-    wide = key_search.block_plan(40, 5000, True)
-    assert (wide.chunk, wide.chunks, wide.spans) == (32, 2, 90)
+    chunk and one pass at a stride of 11 words (713 words a warp)."""
+    p = key_search.block_plan(64, 8)
+    assert (p.chunk, p.chunks, p.span, p.spans, p.head, p.stride,
+            p.warp_words) == (64, 1, 8, 1, 9, 11, 713)
+    assert key_search.block_plan(300, 8).chunks == 2
+    wide = key_search.block_plan(40, 5000)
+    assert (wide.chunk, wide.chunks, wide.span, wide.spans) \
+        == (32, 2, 59, 85)
 
 
-@pytest.mark.parametrize("n_keys,key_words,aligned", [
-    (64, 8, True), (64, 8, False), (300, 8, True), (80, 12, True),
-    (80, 12, False), (3, 1, True), (40, 3, False), (7, 1022, True),
-    (40, 1500, True), (33, 1500, False)])
-def test_block_plan_stages_every_word_once(n_keys, key_words, aligned):
+@pytest.mark.parametrize("n_keys,key_words", [
+    (64, 8), (64, 4), (300, 8), (80, 12), (300, 3), (3, 1), (40, 3),
+    (7, 1022), (40, 1500), (33, 1500)])
+def test_block_plan_stages_every_word_once(n_keys, key_words):
     """Over each chunk's passes the burst copies every key word of the
     chunk once and each candidate's length and valid word once; each pass
     copies its query lanes and the query's length once; no two copies of
     a pass share a buffer word, every copy lands inside the warp's buffer
-    where the compare reads it; a 16-byte copy moves four consecutive
-    words from a 16-byte aligned source to a 16-byte aligned buffer word."""
-    p = key_search.block_plan(n_keys, key_words, aligned)
+    where the compare reads it."""
+    p = key_search.block_plan(n_keys, key_words)
     stages = ref.block_stage_words(p)
     assert len(stages) == p.chunks
     keys_seen, lens_seen, valid_seen = [], [], []
@@ -115,15 +102,6 @@ def test_block_plan_stages_every_word_once(n_keys, key_words, aligned):
             i, w = idx[key] // key_words - i0, idx[key] % key_words - w0
             assert bool(((w >= 0) & (w < ws) & (i >= 0) & (i < n)).all())
             assert torch.equal(dst[key], p.head + i * p.stride + w)
-            if p.vec == 4:
-                for x in (lane[key], dst[key], idx[key]):
-                    assert x.numel() % 4 == 0
-                g = lambda x: x.reshape(-1, 4)          # noqa: E731
-                assert bool((g(lane[key]) == g(lane[key])[:, :1]).all())
-                for x in (dst[key], idx[key]):
-                    assert bool((g(x)[:, 0] % 4 == 0).all())
-                    assert bool((g(x) - g(x)[:, :1]
-                                 == torch.arange(4)).all())
             keys_seen.append(idx[key])
             for s_, off, seen in ((ref.STAGE_LEN, p.span, lens_seen),
                                   (ref.STAGE_VALID, p.span + 1,
@@ -143,16 +121,13 @@ def test_block_plan_stages_every_word_once(n_keys, key_words, aligned):
 def test_block_mirror_matches_plain_and_reference(case):
     """The search as the kernel stages, chunks and passes it equals the
     plain version and the reference's oracle and interpret-mode Pallas
-    kernel, by either route (keys aligned, or at a 4-byte offset), with
-    valid masks all zero, full and not a prefix."""
+    kernel, with valid masks all zero, full and not a prefix."""
     n, kw = map(int, case.split("x"))
     q, qlen, keys, klens, valid = _block_case(n, kw)
     args = [_t(a) for a in (q, qlen, keys, klens, valid)]
     want = ref.key_search_ref(*args)
-    for aligned in (True, False):
-        got = ref.key_search_block_mirror(
-            *args, key_search.block_plan(n, kw, aligned))
-        assert got.dtype == torch.int32 and torch.equal(want, got)
+    got = ref.key_search_block_mirror(*args, key_search.block_plan(n, kw))
+    assert got.dtype == torch.int32 and torch.equal(want, got)
     jr = jref.key_search_ref(*map(jnp.asarray, (q, qlen, keys, klens,
                                                 valid)))
     ji = jops.key_search(q, qlen, keys, klens, valid, backend="interpret",
@@ -166,22 +141,20 @@ def test_block_mirror_matches_plain_and_reference(case):
     (8, 16, 4, 60), (128, 64, 8, 60), (50, 8, 2, 60), (3, 80, 8, 60),
     (64, 64, 8, 2 ** 32), (40, 8, 8, 2 ** 32)])
 def test_block_mirror_on_the_reference_sweep(B, N, KW, lane_hi):
-    """The reference's own floor-search sweep through the mirror, both
-    routes, equal to the plain version."""
+    """The reference's own floor-search sweep through the mirror, equal
+    to the plain version."""
     args = [_t(a) for a in _search_case(B, N, KW, B + N, lane_hi)]
     want = ref.key_search_ref(*args)
-    for aligned in (True, False):
-        got = ref.key_search_block_mirror(
-            *args, key_search.block_plan(N, KW, aligned))
-        assert torch.equal(want, got)
+    got = ref.key_search_block_mirror(*args, key_search.block_plan(N, KW))
+    assert torch.equal(want, got)
 
 
 # ---- leaf merge -------------------------------------------------------------
 
 @pytest.mark.parametrize("log_cap", [0, 1, 4, 16, 17, 32, 33, 40, 1536])
 def test_merge_plan_instances_and_budgets(log_cap):
-    """A half-warp a leaf up to 16 log entries (two leaves a warp), a warp
-    up to 32, the generic instance beyond, its shared memory under 48 KB
+    """A half-warp a leaf up to 16 log entries (two leaves a warp), the
+    generic instance beyond, its shared memory under 48 KB
     across the whole domain (node_cap + 2 * log_cap <= 3,072); outside
     the domain the plan raises before any launch."""
     node_cap = leaf_merge.MAX_SHARED_WORDS - 2 * log_cap
@@ -189,8 +162,6 @@ def test_merge_plan_instances_and_budgets(log_cap):
         p = leaf_merge.merge_plan(n, log_cap)
         if log_cap <= 16:
             assert (p.group, p.leaves) == (16, 2 * p.warps)
-        elif log_cap <= 32:
-            assert (p.group, p.leaves) == (32, p.warps)
         else:
             assert (p.group, p.leaves) == (0, p.warps)
             assert p.smem_bytes == 12 * p.warps * log_cap
@@ -244,8 +215,8 @@ def test_merge_mirror_on_wild_leaves(N, L):
 
 @pytest.mark.parametrize("L", [1, 16, 32, 33, 40])
 def test_merge_mirror_at_the_stores_node_cap(L):
-    """The default geometry's 64 sorted slots beside wild log blocks of
-    every register instance's edge and the generic instance's, on the
+    """The default geometry's 64 sorted slots beside wild log blocks at
+    the register instance's edge and past it (the generic instance), on the
     port's plain version alone (more leaves than the reference checks)."""
     _check_merge(*_wild_merge_case(300, 64, L, L + 7), 64, L,
                  reference=False)

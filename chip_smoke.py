@@ -80,6 +80,20 @@ attention's, the block-mode search's and the leaf merge's times before
 their redesign are printed beside this run's.  Both delta-sync scatters' byte bound counts the
 distinct dirty rows only (``scatter_bound_ms``).
 
+EpochSan (``repro_torch.analysis.epochsan``) runs in strict mode over the
+correctness phases of paths 1, 2 and 3 and is off in every kernel timing
+(profiler and CUDA-event loops); the host-clock latencies those phases
+print include its checks.  The KSU/RSU entry points pass no seam: no store
+path calls them.  Each of paths 1, 2 and 3 prints its meters as one
+``{"epochsan": {...}}`` line, and any violation, or a seam the path
+passes left uncounted, fails the run.  A read of a delta staged and not
+flipped must raise ``standby-read`` before any launch.  Last, the kernel
+check of ``python -m repro_torch.analysis`` runs on the card: every entry
+point of ``kernels/ops.py`` once on small seeded inputs, one launch of its
+own kernel, its pinned read-backs, in-place scatters, and shared memory
+under the device's limit; it prints one ``{"kernel_check": [...]}`` line
+and any finding fails the run.
+
 Run from the repository root on a machine with a CUDA GPU:
 
     python3 chip_smoke.py [--keys-log2 17] [--replicated-keys-log2 18]
@@ -155,6 +169,12 @@ BEFORE_MS = {"fused_get": 0.0354, "fused_scan": 0.0365,
 # kernel: (name, H, KVH, D, softcap, window) of gemma2-27b and gemma3-12b
 PAGED_SHAPES = (("gemma2-27b", 32, 16, 128, 50.0, 4096),
                 ("gemma3-12b", 16, 8, 256, 0.0, 1024))
+# entries of the log replay's checks against its plain version; then
+# (entries, position of the bad pair) of its rejected calls
+REPLAY_CHECK_D = (1, 29, 1000, 4000)
+REPLAY_REJECT = ((3, 2), (1000, 900))
+# entries of the log replay's second timing, beside the main path's size
+REPLAY_TIMING_D = 1024
 
 
 class SmokeFailure(RuntimeError):
@@ -316,6 +336,18 @@ def image_clone_ms(image: torch.Tensor) -> float:
     return cuda_ms([image.clone], 32)
 
 
+def epochsan_report(path: str, san, need) -> None:
+    """Print a path's EpochSan meters as one JSON line; fail on any
+    violation or on a counter of ``need`` (the seams the path passes)
+    left at 0."""
+    st = dataclasses.asdict(san.stats)
+    print(json.dumps({"epochsan": {"path": path, **st}}))
+    check(st["violations"] == 0 and not san.violations,
+          f"{path}: EpochSan recorded {st['violations']} violation(s)")
+    for name in need:
+        check(st[name] > 0, f"{path}: EpochSan counted no {name}")
+
+
 def max_abs_err(want, got) -> int:
     """Largest absolute difference over every field of two results."""
     return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
@@ -396,6 +428,10 @@ def main() -> int:
     kernels.append(paged)
     print(f"serving path with its checks and timings: "
           f"{time.perf_counter() - t0:.3f} s")
+    print("== kernel check: every entry point of kernels/ops.py ==")
+    t0 = time.perf_counter()
+    kernel_check_phase(dev)
+    print(f"kernel check: {time.perf_counter() - t0:.3f} s")
     for k in kernels:         # each kernel's launches over the main paths
         by_path = {"single_shard": launches[k["name"]],
                    "replicated": repl_launches[k["name"]],
@@ -414,11 +450,66 @@ def main() -> int:
     return 0
 
 
+def smoke_smem_bytes() -> dict:
+    """Each planned kernel's largest dynamic shared memory at this
+    script's own shapes (the kernel check covers the default config and
+    each plan's largest admitted shape), from the plans that size it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import HoneycombConfig, NodeImageLayout
+    from repro_torch.kernels import (delta_scatter, key_search, leaf_merge,
+                                     paged_attention)
+    cfg = HoneycombConfig()
+    LW = NodeImageLayout.for_config(cfg).log_entry_words
+    qwen = get_config("qwen2.5-3b")
+    heads = [(qwen.n_heads, qwen.n_kv_heads, qwen.head_dim)] + [
+        (H, KVH, D) for _, H, KVH, D, _, _ in PAGED_SHAPES]
+    B, P = SERVING_SLOTS, SERVING_PAGE
+    return {
+        "ops.key_search_image": max(key_search.image_plan(n, kw).smem_bytes
+                                    for n, kw in WILD_IMAGE),
+        "ops.key_search": max(key_search.block_plan(n, kw).smem_bytes
+                              for n, kw in WILD_BLOCK),
+        "ops.leaf_merge": max(leaf_merge.merge_plan(cfg.node_cap, x)
+                              .smem_bytes for x in WILD_MERGE_LOGS),
+        "ops.log_replay_scatter": max(delta_scatter.replay_plan(d, LW)
+                                      .smem_bytes for d in REPLAY_CHECK_D
+                                      + (REPLAY_TIMING_D,)),
+        "ops.paged_attention": max(
+            paged_attention.span_plan(B, H, KVH, SERVING_MAX_SEQ // P, P, D,
+                                      dt).smem
+            for H, KVH, D in heads for dt in (torch.bfloat16, torch.float32)),
+    }
+
+
+def kernel_check_phase(dev) -> None:
+    """``python -m repro_torch.analysis``'s kernel check on the card: each
+    entry point of ``kernels/ops.py`` once on small seeded inputs (these
+    launches are no path's).  Each entry also gets its shared memory at
+    this script's shapes (``smoke_smem_bytes``).  Prints one
+    ``{"kernel_check": [...]}`` line; any finding fails the run."""
+    from repro_torch.analysis import kernel_check
+    findings, runs = kernel_check.run_kernel_checks(dev)
+    for f in findings:
+        print(f"  {f}")
+    entries = kernel_check.summary(runs, findings, dev)
+    smoke = smoke_smem_bytes()
+    for e in entries:
+        e["smoke_smem_bytes"] = smoke.get(e["name"], e["smem_bytes"])
+    print(json.dumps({"kernel_check": entries}))
+    check(not findings, f"the kernel check found {len(findings)} fault(s)")
+    check(len(entries) == 10 and all(
+        e["launches"] == 1 and e["other_launches"] == 0
+        and e["readbacks"] <= e["readbacks_pinned"]
+        and max(e["smem_bytes"], e["smoke_smem_bytes"]) <= e["smem_limit"]
+        for e in entries), f"kernel check entries {entries}")
+
+
 def single_shard_path(args, dev, flush):
     """The paper's deployment, one ``HoneycombStore``: load, read, write,
     delta-sync, read again; then the fused read and row-scatter kernels
     against their plain versions.  Returns their ``kernels`` entries and
     the path's launch counts."""
+    from repro_torch.analysis import epochsan
     from repro_torch.core import HoneycombConfig, HoneycombStore
     from repro_torch.core.config import bucket_pow2
     from repro_torch.core.keys import int_key, pack_keys
@@ -473,45 +564,51 @@ def single_shard_path(args, dev, flush):
                       f"{phase} SCAN {lo!r}..{hi!r} vs tree")
 
     # ---- the main path, every launch count set to 0 just before it -------
-    build.reset_launches()
-    ops.reset_read_dispatches()
-    t0 = time.perf_counter()
-    store.export_snapshot()
-    torch.cuda.synchronize()
-    full_s = time.perf_counter() - t0
-    gets1, scans1, lat1 = read_phase()
-    check_answers(gets1, scans1, "before the writes")
-    # updates, deletes and inserts; a 9-byte key sorts right after its
-    # 8-byte prefix, so the inserts spread over the whole tree
-    writes = []
-    for j, op in enumerate(rng.choice(3, args.writes, p=[0.6, 0.2, 0.2])):
-        i = int(rng.integers(0, n))
-        writes.append((int(op), i, j + 1))
-    t0 = time.perf_counter()
-    for op, i, gen in writes:
-        k = int_key(i)
-        if op == 0:
-            store.update(k, value(i, gen))
-        elif op == 1:
-            store.delete(k)
-        else:
-            store.put(k + b"\x01", value(i, gen))
-    write_s = time.perf_counter() - t0
-    for op, i, gen in writes:
-        k = int_key(i)
-        if op == 0:
-            model[k] = value(i, gen)
-        elif op == 1:
-            model.pop(k, None)
-        else:
-            model[k + b"\x01"] = value(i, gen)
-    t0 = time.perf_counter()
-    store.export_snapshot()
-    torch.cuda.synchronize()
-    delta_s = time.perf_counter() - t0
-    gets2, scans2, lat2 = read_phase()
-    launches = dict(build.LAUNCHES)
-    dispatches = ops.read_dispatch_stats()
+    # (EpochSan on, strict: every staging, flip and read batch passes its
+    # seams; it stays off in the timed loops below)
+    with epochsan.enabled() as san:
+        build.reset_launches()
+        ops.reset_read_dispatches()
+        t0 = time.perf_counter()
+        store.export_snapshot()
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        gets1, scans1, lat1 = read_phase()
+        check_answers(gets1, scans1, "before the writes")
+        # updates, deletes and inserts; a 9-byte key sorts right after its
+        # 8-byte prefix, so the inserts spread over the whole tree
+        writes = []
+        for j, op in enumerate(rng.choice(3, args.writes,
+                                          p=[0.6, 0.2, 0.2])):
+            i = int(rng.integers(0, n))
+            writes.append((int(op), i, j + 1))
+        t0 = time.perf_counter()
+        for op, i, gen in writes:
+            k = int_key(i)
+            if op == 0:
+                store.update(k, value(i, gen))
+            elif op == 1:
+                store.delete(k)
+            else:
+                store.put(k + b"\x01", value(i, gen))
+        write_s = time.perf_counter() - t0
+        for op, i, gen in writes:
+            k = int_key(i)
+            if op == 0:
+                model[k] = value(i, gen)
+            elif op == 1:
+                model.pop(k, None)
+            else:
+                model[k + b"\x01"] = value(i, gen)
+        t0 = time.perf_counter()
+        store.export_snapshot()
+        torch.cuda.synchronize()
+        delta_s = time.perf_counter() - t0
+        gets2, scans2, lat2 = read_phase()
+        launches = dict(build.LAUNCHES)
+        dispatches = ops.read_dispatch_stats()
+    epochsan_report("single_shard", san, ("read_checks", "stagings",
+                                          "flips"))
 
     # ---- answers, syncs and launches --------------------------------------
     sync = store.sync_stats
@@ -716,6 +813,44 @@ def single_shard_path(args, dev, flush):
         "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": library_ms, "D": D,
         "floor_ms": floor_ms, "copy_ms": copy_ms})
+
+    # ---- a read of an unflipped standby raises at its seam, before any
+    # launch (a fresh strict sanitizer; after the timings, not counted)
+    k = min(model)
+    with epochsan.enabled() as probe:
+        store.update(k, model[k])
+        store.begin_export()                  # a delta staged, not flipped
+        before = dict(build.LAUNCHES)
+        try:
+            store._device_get(store._standby, [k])
+            kind = None
+        except epochsan.EpochSanViolation as e:
+            kind = e.kind
+        unchanged = build.LAUNCHES == before
+        check(kind == epochsan.STANDBY_READ and unchanged,
+              f"a GET of the unflipped standby: violation {kind}, launches "
+              f"{'unchanged' if unchanged else 'changed'}")
+        store.flip()
+        check(store.get_batch([k]) == [model[k]], "GET after the flip")
+    print(json.dumps({"epochsan_standby_read": {
+        "raised": kind, "launches_unchanged": unchanged,
+        "violations": probe.stats.violations}}))
+    # what the sanitizer adds to a read batch's host time: one read check
+    # with the store registered, and one seam's test when it is off
+    check(epochsan.get() is None, "EpochSan left on after the path")
+    live, reps = store._snapshot, 10000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        probe.check_read(store, live)
+    check_us = (time.perf_counter() - t0) / reps * 1e6
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        epochsan.get()
+    off_us = (time.perf_counter() - t0) / reps * 1e6
+    print(f"EpochSan host cost (host clock, {reps} calls each): a read "
+          f"check {check_us:.3f} us, a seam's test with the sanitizer off "
+          f"{off_us:.3f} us, against a GET batch's host-clock median of "
+          f"{statistics.median(lat1['get'] + lat2['get']) * 1e3:.3f} ms")
     return kernels, launches, (snap, [keys for keys, _ in gets2])
 
 
@@ -730,7 +865,8 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
     operands.  Then ``leaf_merge`` (the RSU) orders every leaf row of the
     image.  Every result must equal its plain version, the read path's own
     shortcut floor, two-stage segment floor and leaf ranks; then each
-    kernel is timed.  Returns the three ``kernels`` entries and the path's
+    kernel is timed.  These entry points pass no EpochSan seam: no store
+    path calls them.  Returns the three ``kernels`` entries and the path's
     launch counts."""
     from repro_torch.core import HoneycombConfig, NodeImageLayout
     from repro_torch.core import read_path as rp
@@ -780,7 +916,8 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
         key = torch.from_numpy(lanes.view(np.int32)).to(dev)
         klen = torch.from_numpy(lens).to(dev)
         B = len(keys)
-        lid = torch.full((B,), snap.root_lid, dtype=torch.int32, device=dev)
+        lid = torch.full((B,), snap.root_lid, dtype=torch.int32,
+                         device=dev)
         phys = torch.zeros_like(lid)
         done = torch.zeros(B, dtype=torch.bool, device=dev)
         for level in range(cfg.max_height):
@@ -794,14 +931,15 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
             bs = ops.key_search(key, klen, *blk)
             # (a) each kernel against its plain version on its inputs
             same("key_search_image", ref.key_search_image_ref(
-                key, klen, rows, **shortcut), sc, "shortcut block vs plain")
+                key, klen, rows, **shortcut), sc,
+                "shortcut block vs plain")
             same("key_search_image", ref.key_search_image_ref(
                 key, klen, rows, **sorted_block), sb,
                 "sorted block vs plain")
             same("key_search", ref.key_search_ref(key, klen, *blk), bs,
                  "vs plain")
-            # (b) the shortcut floor, (c) the two-stage segment floor, (d)
-            # the block mode against the image mode, at this level
+            # (b) the shortcut floor, (c) the two-stage segment floor,
+            # (d) the block mode against the image mode, at this level
             seg = rp._shortcut_floor(view, cur, key, klen)
             check(torch.equal(sc.clamp(min=0), seg),
                   f"level {level}: shortcut search differs from the read "
@@ -810,8 +948,8 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
                                                     klen, cfg)),
                   f"level {level}: sorted-block search differs from the "
                   f"read path's two-stage floor")
-            check(torch.equal(bs, sb), f"level {level}: key_search differs "
-                  f"from key_search_image on the decoded block")
+            check(torch.equal(bs, sb), f"level {level}: key_search "
+                  f"differs from key_search_image on the decoded block")
             stats["visits"] += B
             stats["levels"] += 1
             stats["sorted_minus1"] += int((sb < 0).sum())
@@ -1179,6 +1317,7 @@ def replicated_path(args, dev, flush):
     plain version at two of the path's fallback deltas.  Returns the
     log-replay ``kernels`` entry, the path's launch counts and the row
     scatter's comparison (its deltas' sizes and max abs err)."""
+    from repro_torch.analysis import epochsan
     from repro_torch.core import (FeedTopology, HoneycombConfig,
                                   NodeImageLayout, ReplicationConfig,
                                   ShardedHoneycombStore,
@@ -1317,78 +1456,84 @@ def replicated_path(args, dev, flush):
         model[k] = v
 
     # ---- the main path, every launch count set to 0 just before it -------
-    build.reset_launches()
-    ops.reset_read_dispatches()
-    t0 = time.perf_counter()
-    store.export_snapshot()
-    torch.cuda.synchronize()
-    full_s = time.perf_counter() - t0
-    check_followers("full export")
-    imgs = [(g.primary._snapshot.image, [f.snapshot.image
-                                         for f in g.followers])
-            for g in groups]
-    print(f"full export {full_s * 1e3:.3f} ms; resident images: "
-          + "; ".join(f"shard {s}: {1 + len(fs)} x {tuple(p.shape)} "
-                      f"({p.nbytes} B each)"
-                      for s, (p, fs) in enumerate(imgs)))
-    read_phase("after the load")
-    gen = 1
-    for e in range(EPOCHS):
+    # (EpochSan on, strict, over the epochs and their reads: the GC and
+    # paused-follower epochs included; off in the timings below)
+    with epochsan.enabled() as san:
+        build.reset_launches()
+        ops.reset_read_dispatches()
+        t0 = time.perf_counter()
+        store.export_snapshot()
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        check_followers("full export")
+        imgs = [(g.primary._snapshot.image, [f.snapshot.image
+                                             for f in g.followers])
+                for g in groups]
+        print(f"full export {full_s * 1e3:.3f} ms; resident images: "
+              + "; ".join(f"shard {s}: {1 + len(fs)} x {tuple(p.shape)} "
+                          f"({p.nbytes} B each)"
+                          for s, (p, fs) in enumerate(imgs)))
+        read_phase("after the load")
+        gen = 1
+        for e in range(EPOCHS):
+            for i in rng.integers(0, n, EPOCH_WRITES):
+                update(int(i), gen)
+                gen += 1
+            # keep the first fallback epoch's deltas (a few dirty leaves)
+            epoch(f"update epoch {e}", keep_delta=not kept_deltas)
+            if (e + 1) % 16 == 0:
+                read_phase(f"after update epoch {e}", batches=2)
+        per_shard = [[sum(1 for _, k, _, _ in epochs if k[s] == kind)
+                      for kind in ("log", "fallback")] for s in range(2)]
+        print(f"{EPOCHS} epochs of {EPOCH_WRITES} updates: per shard "
+              f"[log-feed, fallback] epochs {per_shard}")
+        for s, (n_log, _) in enumerate(per_shard):
+            check(n_log >= 16, f"shard {s}: only {n_log} log-feed epochs")
+        fb0 = [g.feed_stats.log_fallback_epochs for g in groups]
+        for i in rng.integers(0, n, 200):            # splits: a fallback epoch
+            k, v = int_key(int(i)) + b"\x01", value(int(i), gen)
+            store.put(k, v)
+            model[k] = v
+            gen += 1
+        epoch("insert epoch", keep_delta=True)
+        print(f"insert epoch of 200 new keys fed {epochs[-1][1]}")
+        check("fallback" in epochs[-1][1], f"insert epoch fed {epochs[-1][1]}")
+        read_phase("after the insert epoch", batches=2)
         for i in rng.integers(0, n, EPOCH_WRITES):
             update(int(i), gen)
             gen += 1
-        # keep the first fallback epoch's deltas (a few dirty leaves)
-        epoch(f"update epoch {e}", keep_delta=not kept_deltas)
-        if (e + 1) % 16 == 0:
-            read_phase(f"after update epoch {e}", batches=2)
-    per_shard = [[sum(1 for _, k, _, _ in epochs if k[s] == kind)
-                  for kind in ("log", "fallback")] for s in range(2)]
-    print(f"{EPOCHS} epochs of {EPOCH_WRITES} updates: per shard "
-          f"[log-feed, fallback] epochs {per_shard}")
-    for s, (n_log, _) in enumerate(per_shard):
-        check(n_log >= 16, f"shard {s}: only {n_log} log-feed epochs")
-    fb0 = [g.feed_stats.log_fallback_epochs for g in groups]
-    for i in rng.integers(0, n, 200):            # splits: a fallback epoch
-        k, v = int_key(int(i)) + b"\x01", value(int(i), gen)
-        store.put(k, v)
-        model[k] = v
-        gen += 1
-    epoch("insert epoch", keep_delta=True)
-    print(f"insert epoch of 200 new keys fed {epochs[-1][1]}")
-    check("fallback" in epochs[-1][1], f"insert epoch fed {epochs[-1][1]}")
-    read_phase("after the insert epoch", batches=2)
-    for i in rng.integers(0, n, EPOCH_WRITES):
-        update(int(i), gen)
-        gen += 1
-    freed = [g.collect_garbage() for g in groups]
-    epoch("GC epoch")
-    print(f"GC epoch: {freed} node slots freed per shard, fed "
-          f"{epochs[-1][1]}")
-    check(sum(freed) > 0, "GC freed nothing")
-    for s, (nf, kind) in enumerate(zip(freed, epochs[-1][1])):
-        check(kind != "log" or not nf, f"GC epoch on shard {s} fed {kind}")
-    read_phase("after the GC epoch", batches=2)
-    g0 = groups[0]
-    g0.pause_follower(2)
-    for i in rng.integers(0, boundary, EPOCH_WRITES):   # shard 0
-        update(int(i), gen)
-        gen += 1
-    epoch("paused epoch")
-    check(g0.replica_lag_epochs[1] >= 1 and 2 not in g0.eligible_replicas(),
-          f"paused follower lag {g0.replica_lag_epochs}")
-    read_phase("with a paused follower", batches=2)
-    g0.resume_follower(2)
-    catch0 = g0.feed_stats.full_catchups
-    for i in rng.integers(0, boundary, EPOCH_WRITES):
-        update(int(i), gen)
-        gen += 1
-    epoch("catch-up epoch")
-    check(g0.feed_stats.full_catchups == catch0 + 1
-          and g0.replica_lag_epochs == [0, 0],
-          f"catch-up: {g0.feed_stats}, lag {g0.replica_lag_epochs}")
-    read_phase("after the catch-up", batches=4)
-    launches = dict(build.LAUNCHES)
-    dispatches = ops.read_dispatch_stats()
+        freed = [g.collect_garbage() for g in groups]
+        epoch("GC epoch")
+        print(f"GC epoch: {freed} node slots freed per shard, fed "
+              f"{epochs[-1][1]}")
+        check(sum(freed) > 0, "GC freed nothing")
+        for s, (nf, kind) in enumerate(zip(freed, epochs[-1][1])):
+            check(kind != "log" or not nf, f"GC epoch on shard {s} fed {kind}")
+        read_phase("after the GC epoch", batches=2)
+        g0 = groups[0]
+        g0.pause_follower(2)
+        for i in rng.integers(0, boundary, EPOCH_WRITES):   # shard 0
+            update(int(i), gen)
+            gen += 1
+        epoch("paused epoch")
+        check(g0.replica_lag_epochs[1] >= 1
+              and 2 not in g0.eligible_replicas(),
+              f"paused follower lag {g0.replica_lag_epochs}")
+        read_phase("with a paused follower", batches=2)
+        g0.resume_follower(2)
+        catch0 = g0.feed_stats.full_catchups
+        for i in rng.integers(0, boundary, EPOCH_WRITES):
+            update(int(i), gen)
+            gen += 1
+        epoch("catch-up epoch")
+        check(g0.feed_stats.full_catchups == catch0 + 1
+              and g0.replica_lag_epochs == [0, 0],
+              f"catch-up: {g0.feed_stats}, lag {g0.replica_lag_epochs}")
+        read_phase("after the catch-up", batches=4)
+        launches = dict(build.LAUNCHES)
+        dispatches = ops.read_dispatch_stats()
+    epochsan_report("replicated", san, ("read_checks", "stagings", "flips",
+                                        "gc_audits", "dispatch_checks"))
 
     # ---- counts ----------------------------------------------------------
     fol = [f for g in groups for f in g.followers]
@@ -1530,7 +1675,7 @@ def replicated_path(args, dev, flush):
     S, IW = base.shape
     gen_t = torch.Generator(device="cpu").manual_seed(args.seed)
     err, sizes = 0, []
-    for d in (1, 29, 1000, 4000):
+    for d in REPLAY_CHECK_D:
         rows, slots, entries = (x.to(dev) for x in
                                 replay_case(S, d, offs, layout, gen_t))
         img = base.clone()
@@ -1549,7 +1694,7 @@ def replicated_path(args, dev, flush):
     # a bad row and a bad slot raise and write nothing, with the pairs held
     # in registers (D = 4) and walked (D = 1024); a good call right after
     # is exact
-    for d, at in ((3, 2), (1000, 900)):
+    for d, at in REPLAY_REJECT:
         rows, slots, entries = (x.to(dev) for x in
                                 replay_case(S, d, offs, layout, gen_t))
         img = base.clone()
@@ -1585,7 +1730,8 @@ def replicated_path(args, dev, flush):
           f"{dict(sorted(collections.Counter(all_sizes).items()))} "
           f"(padded entries: launches)")
     cases, work, t = replay_timing(base, D, offs, layout, gen_t, flush)
-    _, _, t_1k = replay_timing(base, 1024, offs, layout, gen_t, flush)
+    _, _, t_1k = replay_timing(base, REPLAY_TIMING_D, offs, layout, gen_t,
+                               flush)
     ms, wrapper_ms, plain_ms = t["ms"], t["wrapper_ms"], t["plain_ms"]
     EW = layout.log_entry_words
     # the field words' flat indices, precomputed: index_put_ covers the
@@ -1702,6 +1848,7 @@ def service_legacy_path(args, dev, flush):
     with D = 1024, and timed beside the 24 ``index_copy_`` calls it
     replaces and the packed layout's row scatter.  Returns the
     multi-scatter ``kernels`` entry and the path's launch counts."""
+    from repro_torch.analysis import epochsan
     from repro_torch.core import (FIELD_NAMES, HoneycombConfig,
                                   HoneycombService, LegacyTreeSnapshot,
                                   NodeImageLayout, Put,
@@ -1851,25 +1998,30 @@ def service_legacy_path(args, dev, flush):
         return dt
 
     # ---- the main path, every launch count set to 0 just before it -------
-    build.reset_launches()
-    ops.reset_read_dispatches()
-    sync0 = [[dataclasses.replace(s) for s in g.per_replica_sync_stats]
-             for g in groups]
-    gen = 1
-    pipelined_s = []
-    stall0 = svc.stats.sync_stall_s
-    for e in range(SERVICE_EPOCHS):
-        pipelined_s.append(epoch(svc, f"pipelined epoch {e}", gen))
-        gen += 1
-    stall_pipelined = (svc.stats.sync_stall_s - stall0) / SERVICE_EPOCHS
-    serial = HoneycombService(store, batch_size=BATCH, pipeline="serial")
-    serial_s = []
-    for e in range(SERIAL_EPOCHS):
-        serial_s.append(epoch(serial, f"serial epoch {e}", gen))
-        gen += 1
-    stall_serial = serial.stats.sync_stall_s / SERIAL_EPOCHS
-    launches = dict(build.LAUNCHES)
-    dispatches = ops.read_dispatch_stats()
+    # (EpochSan on, strict, over the pipelined and serial epochs; off in
+    # the timings below)
+    with epochsan.enabled() as san:
+        build.reset_launches()
+        ops.reset_read_dispatches()
+        sync0 = [[dataclasses.replace(s) for s in g.per_replica_sync_stats]
+                 for g in groups]
+        gen = 1
+        pipelined_s = []
+        stall0 = svc.stats.sync_stall_s
+        for e in range(SERVICE_EPOCHS):
+            pipelined_s.append(epoch(svc, f"pipelined epoch {e}", gen))
+            gen += 1
+        stall_pipelined = (svc.stats.sync_stall_s - stall0) / SERVICE_EPOCHS
+        serial = HoneycombService(store, batch_size=BATCH, pipeline="serial")
+        serial_s = []
+        for e in range(SERIAL_EPOCHS):
+            serial_s.append(epoch(serial, f"serial epoch {e}", gen))
+            gen += 1
+        stall_serial = serial.stats.sync_stall_s / SERIAL_EPOCHS
+        launches = dict(build.LAUNCHES)
+        dispatches = ops.read_dispatch_stats()
+    epochsan_report("service_legacy", san, ("read_checks", "stagings",
+                                            "flips", "dispatch_checks"))
 
     # ---- counts ----------------------------------------------------------
     applies = sum(s1.delta_syncs - s0.delta_syncs

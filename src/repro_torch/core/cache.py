@@ -37,6 +37,7 @@ import dataclasses
 
 import numpy as np
 
+from ..analysis import epochsan as _epochsan
 from .config import HoneycombConfig
 from .heap import INTERIOR, NULL
 from .telemetry import samples_from
@@ -127,6 +128,9 @@ class InteriorCache:
         self.tick[s, w] = self._clock
 
     def invalidate(self, lid: int):
+        san = _epochsan.get()
+        if san is not None:   # a remap happened: the NEXT staging must
+            san.note_cache_invalidate(self)   # refresh before it ships
         s = self._set_of(lid)
         for w in range(self.cfg.cache_ways):
             if self.tag[s, w] == lid:
@@ -164,6 +168,9 @@ class InteriorCache:
         self.packed_lids = np.asarray(self.frontier_lids(tree), np.int64)
         for lid in self.packed_lids:
             self.lookup(int(lid), tree.pt.lookup(int(lid)))
+        san = _epochsan.get()
+        if san is not None:
+            san.note_cache_refresh(self)
 
     def device_lids(self, tree=None) -> np.ndarray:
         """The packed frontier as the fixed-shape i32 vector that rides on

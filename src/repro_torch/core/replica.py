@@ -51,7 +51,12 @@ Device memory: every follower keeps its own active image on the shard's
 device.  Like the delta apply (``read_path.apply_snapshot_delta``), a log
 replay clones the follower's whole image (S·IW·4 bytes) and replays into
 the clone in place, so the active snapshot keeps answering while the
-standby is staged.  Not ported: the EpochSan seams (ROADMAP A10).
+standby is staged.
+
+The EpochSan seams (``analysis/epochsan.py``) sit where the reference's
+do: ``stage``/``stage_log`` tag the follower's standby, its ``flip`` the
+published snapshot, and ``get_batch``/``scan_batch`` re-derive the
+freshness rule before a batch dispatches to a follower.
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..analysis import epochsan as _epochsan
 from ..kernels import ops as kernel_ops
 from .api import Routing, decode_wire_stream
 from .config import ReplicationConfig, bucket_pow2
@@ -185,6 +191,9 @@ class FollowerReplica:
             self.in_sync = True
             was_full = True
         self._standby_rv = payload.read_version
+        san = _epochsan.get()
+        if san is not None:
+            san.note_staged(self, self._standby)
         return nbytes, was_full
 
     def stage_log(self, payload: StagedSync, marshalled) -> int:
@@ -218,6 +227,9 @@ class FollowerReplica:
         stats.log_entries += lp.entries
         stats.log_wire_bytes += lp.wire_nbytes
         stats.bytes_synced += lp.nbytes
+        san = _epochsan.get()
+        if san is not None:
+            san.note_staged(self, self._standby)
         return lp.nbytes
 
     def flip(self, primary_epoch: int) -> bool:
@@ -230,6 +242,9 @@ class FollowerReplica:
         self._standby = None
         self._standby_rv = None
         self.epoch = primary_epoch
+        san = _epochsan.get()
+        if san is not None:
+            san.note_flip(self, self.snapshot)
         return True
 
 
@@ -487,6 +502,9 @@ class ReplicaGroup:
             res = self.primary.get_batch(keys)
             self.last_dispatch = (0, self.primary.serving_version)
             return res
+        san = _epochsan.get()
+        if san is not None:   # re-derive the freshness rule at dispatch
+            san.check_follower_dispatch(self, f)
         res = self.primary._device_get(f.snapshot, keys)
         self.last_dispatch = (f.replica_id,
                               f.snapshot_rv if f.snapshot_rv is not None
@@ -502,6 +520,9 @@ class ReplicaGroup:
             res = self.primary.scan_batch(ranges)
             self.last_dispatch = (0, self.primary.serving_version)
             return res
+        san = _epochsan.get()
+        if san is not None:   # re-derive the freshness rule at dispatch
+            san.check_follower_dispatch(self, f)
         # eligibility pinned the follower at the primary snapshot's read
         # version, so truncated-scan host fallbacks use the primary's rule
         res = self.primary._device_scan(f.snapshot, ranges,

@@ -57,8 +57,8 @@ value/items, the serving replica, and the read version the answering
 snapshot served at — the linearizability stamp); ``run()`` is the shim
 that unwraps responses to bare values.
 
-Not ported: the reference's EpochSan hook at the end of ``stage_export``
-(ROADMAP A10).
+EpochSan (``analysis/epochsan.py``) checks at the end of
+``stage_export`` that every staged standby was flipped.
 """
 from __future__ import annotations
 
@@ -68,6 +68,7 @@ from typing import Any, Iterable, Sequence
 
 import torch
 
+from ..analysis import epochsan as _epochsan
 from .api import NOT_FOUND, OK, OPS_BY_KIND, Op, Response, Routing, Scan
 from .pipeline import PIPELINE_MODES, PipelineStats
 from .telemetry import CLOCK
@@ -301,6 +302,9 @@ class OutOfOrderScheduler:
             # per-shard publish.
             self._tracer.span_all("export_stage", t0, t_mid)
             self._tracer.span_all("flip", t_mid, t1)
+        san = _epochsan.get()
+        if san is not None:   # stage_export's contract: staged => flipped
+            san.check_exported(store)
 
     def stage_dispatch(self, store, flush: bool = True
                        ) -> dict[int, Response]:

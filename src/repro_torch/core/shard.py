@@ -42,8 +42,13 @@ For the log-shipped replication feed (core/replica.py) a replica group
 sets ``log_capture``: every write is then captured with its fast-path
 placement, and a delta staging whose writes all took the leaf fast path
 carries them as one ``LogPayload`` (the op wire stream plus a placement
-sidecar) that followers replay on the device.  Not ported: the EpochSan
-seams (ROADMAP A10).
+sidecar) that followers replay on the device.
+
+The EpochSan seams (``analysis/epochsan.py``) sit where the reference's
+do: ``begin_export`` tags the staged standby, ``flip`` the published
+snapshot, ``_device_get``/``_device_scan`` check the snapshot before any
+packing or launch, and ``collect_garbage`` audits each collect against
+the pre-collect epoch window.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..analysis import epochsan as _epochsan
 from ..kernels import ops as kernel_ops
 from .api import OPS_BY_KIND, Delete, Routing, wire_entry_nbytes
 from .btree import HoneycombTree
@@ -379,6 +385,9 @@ class StoreShard:
         # belongs to the next staging
         self._epoch_log = []
         self._epoch_replayable = True
+        san = _epochsan.get()
+        if san is not None:   # tag the standby; audit the cache frontier
+            san.note_staged(self, snap)
         if self.on_staged is not None:
             self.on_staged(self.last_staged)
         return True
@@ -425,7 +434,10 @@ class StoreShard:
         self._standby_pin = None
         if old_pin is not None:
             self.tree.epochs.accel_complete_batch(*old_pin)
-        if self.on_flip is not None:
+        san = _epochsan.get()
+        if san is not None:               # retag the published snapshot
+            san.note_flip(self, self._snapshot)
+        if self.on_flip is not None:      # replica group: flip the followers
             self.on_flip()
         self.last_staged = None
         return self._snapshot
@@ -584,7 +596,12 @@ class StoreShard:
 
     def _device_get(self, snap: TreeSnapshot,
                     keys: list[bytes]) -> list[bytes | None]:
-        """Execute one dense GET batch against ``snap``."""
+        """Execute one dense GET batch against ``snap`` — the active
+        snapshot, or a follower replica's image (core/replica.py serves
+        followers through the primary's dispatch)."""
+        san = _epochsan.get()
+        if san is not None:   # reads may never see an unflipped standby
+            san.check_read(self, snap)
         padded = keys + [keys[0]] * (bucket_pow2(len(keys)) - len(keys))
         self.pipeline_stats.dispatched_lanes += len(keys)
         self.pipeline_stats.padded_lanes += len(padded)
@@ -626,6 +643,9 @@ class StoreShard:
                      ) -> list[list[tuple[bytes, bytes]]]:
         """Execute one dense SCAN batch against ``snap``; truncated
         requests fall back to the host tree at ``fallback_rv``."""
+        san = _epochsan.get()
+        if san is not None:   # reads may never see an unflipped standby
+            san.check_read(self, snap)
         padded = ranges + [ranges[0]] * (bucket_pow2(len(ranges))
                                          - len(ranges))
         self.pipeline_stats.dispatched_lanes += len(ranges)
@@ -674,7 +694,13 @@ class StoreShard:
 
     # ------------------------------------------------------------- misc
     def collect_garbage(self) -> int:
+        san = _epochsan.get()
+        # audit the collect against the PRE-collect epoch window: nothing
+        # a pinned accelerator/CPU epoch still covers may be reclaimed
+        guard = san.gc_begin(self) if san is not None else None
         n = self.tree.gc.collect()
+        if guard is not None:
+            san.gc_end(self, guard)
         if n:
             # GC wipes freed slots (marking them dirty) and queues LID
             # frees — row mutations no wire entry describes, so the

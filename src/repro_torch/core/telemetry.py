@@ -582,6 +582,12 @@ class Telemetry:
         if hasattr(store, "feed_stats"):
             reg.register(lambda: store.feed_stats)
             reg.register(lambda: store.replication_stats, src="followers")
+        # EpochSan meters, when the sanitizer is active (lazy import: the
+        # registry must stay constructible without the analysis package)
+        from ..analysis import epochsan as _epochsan
+        san = _epochsan.get()
+        if san is not None:
+            reg.register(lambda: san.stats)
         self.wire_kernel_meter()
         return self
 

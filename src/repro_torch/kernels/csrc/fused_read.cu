@@ -118,6 +118,12 @@ __host__ __device__ inline int warp_words(const Geo& g) {
          + g.KW + g.VW;               // floor item
 }
 
+// Dynamic shared memory of one block: the cache LIDs, the root row, then
+// each warp's words (kernels/fused_read.py:smem_bytes mirrors it).
+inline size_t block_smem_bytes(const Geo& g, int C) {
+  return ((size_t)C + g.IW + (size_t)WARPS * warp_words(g)) * sizeof(int);
+}
+
 __device__ __forceinline__ int key_cmp(const int* a, int alen, const int* b,
                                        int blen, int kw) {
   for (int w = 0; w < kw; ++w) {
@@ -612,8 +618,7 @@ extern "C" int fused_read_launch(
   a.meters = (int*)meters;
   a.touched = (int*)touched;
   a.loads = (int*)loads;
-  const size_t smem =
-      ((size_t)C + g.IW + (size_t)WARPS * warp_words(g)) * sizeof(int);
+  const size_t smem = block_smem_bytes(g, C);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   // raise each kernel's dynamic shared-memory limit once, to the most a
   // block may use
@@ -631,4 +636,13 @@ extern "C" int fused_read_launch(
   kern<<<(B + WARPS - 1) / WARPS, 32 * WARPS, smem, (cudaStream_t)stream>>>(
       a, g);
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory fused_read_launch asks for at this geometry
+// and cache size, in bytes; -1 for a malformed geometry.
+extern "C" int fused_read_smem_bytes(const int* geo, int n_geo, int C) {
+  if (n_geo != GEO_INTS || C < 0) return -1;
+  Geo g;
+  std::memcpy(&g, geo, sizeof(Geo));
+  return (int)block_smem_bytes(g, C);
 }

@@ -25,6 +25,38 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = ([_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
               _I, _I] + [_P] * 10)
 
+#: requests a block serves, one warp each (csrc/fused_read.cu WARPS)
+WARPS = 2
+#: the most dynamic shared memory the launcher lets a block take
+#: (csrc/fused_read.cu MAX_SMEM: 227 KB)
+MAX_SMEM = 232448
+
+
+def warp_words(cfg) -> int:
+    """Shared-memory words one warp needs (csrc/fused_read.cu
+    ``warp_words``): the query's lo and hi keys, one staged row, the
+    merge's four [N + L] arrays, the result slots and the floor item."""
+    KW, VW = cfg.key_words, cfg.val_words
+    return (2 * KW + NodeImageLayout.for_config(cfg).image_words
+            + 4 * (cfg.node_cap + cfg.log_cap)
+            + cfg.max_scan_items * (KW + VW + 2) + KW + VW)
+
+
+def smem_bytes(cfg, C: int) -> int:
+    """Dynamic shared memory of one block over a cache of C rows
+    (csrc/fused_read.cu ``block_smem_bytes``, which the launcher asks for):
+    the cache LIDs, the root row, then each warp's words."""
+    IW = NodeImageLayout.for_config(cfg).image_words
+    return (C + IW + WARPS * warp_words(cfg)) * 4
+
+
+def launcher_smem_bytes(cfg, C: int) -> int:
+    """The launcher's own figure for ``smem_bytes`` (builds the kernel's
+    library where the CUDA toolkit is installed)."""
+    geo = _geometry(cfg)
+    f = build.launcher("fused_read", "fused_read_smem_bytes", [_P, _I, _I])
+    return int(f(geo.ctypes.data, len(geo), C))
+
 
 def _geometry(cfg) -> np.ndarray:
     """The kernel's Geo struct: dimensions, static bounds, then the packed

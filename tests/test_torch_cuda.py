@@ -1216,3 +1216,128 @@ def test_serving_engine_on_cuda_matches_cpu(cuda, arch):
             step.append(lg.float().cpu())
         logits.append(torch.stack(step))
     torch.testing.assert_close(logits[1], logits[0], rtol=5e-2, atol=5e-2)
+
+
+# ------------------------------------------------------------ the analysis
+#: device -> host read-backs a dispatch makes on the card, pinned: the row
+#: and multi-field scatters read the rows' bounds back (``ref.check_rows``),
+#: the log replay its verdict flag; the fused reads, the KSU/RSU and paged
+#: attention none
+KERNEL_READBACKS = {
+    "ops.snapshot_delta_scatter": 1, "ops.snapshot_image_scatter": 1,
+    "ops.snapshot_multi_scatter": 1, "ops.log_replay_scatter": 1,
+    "ops.batched_get_fused": 0, "ops.batched_scan_fused": 0,
+    "ops.key_search": 0, "ops.key_search_image": 0, "ops.leaf_merge": 0,
+    "ops.paged_attention": 0}
+
+
+def test_kernel_check_clean_on_the_card(cuda):
+    """Every entry point of kernels/ops.py on the card: no finding, one
+    launch of its own kernel a dispatch and none of another, the pinned
+    read-backs, in-place scatters that return their destination with an
+    allocation rise below one destination, and every shared-memory figure
+    under the device's opt-in limit, the fused read's mirror equal to its
+    launcher's."""
+    from repro_torch.analysis import kernel_check
+    findings, runs = kernel_check.run_kernel_checks("cuda")
+    assert findings == [], "\n".join(map(str, findings))
+    limit = kernel_check.smem_limit(cuda)
+    assert limit == torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin
+    assert {e.name for e, _ in runs} == set(KERNEL_READBACKS)
+    for entry, rec in runs:
+        assert rec.launches[entry.counter] == 1, entry.name
+        assert sum(rec.launches.values()) == 1, entry.name
+        assert rec.readbacks == KERNEL_READBACKS[entry.name] \
+            == entry.readbacks, (entry.name, rec.readbacks)
+        assert max(b for _, b in rec.smem) <= limit
+        if entry.in_place:
+            assert rec.aliased and rec.alloc_rise < rec.dst_bytes, \
+                (entry.name, rec.alloc_rise, rec.dst_bytes)
+        if entry.fused:
+            assert rec.smem_launcher and all(
+                m == c for _, m, c in rec.smem_launcher)
+
+
+@pytest.mark.parametrize("cfg", [
+    HoneycombConfig(), SMALL,
+    HoneycombConfig(node_cap=64, log_cap=16, n_shortcuts=8, key_words=4),
+    HoneycombConfig(key_words=3, val_words=5, max_scan_items=32)],
+    ids=["default", "small", "page_table", "odd"])
+def test_fused_read_smem_mirror_equals_launcher(cuda, cfg):
+    for C in (0, 1, cfg.cache_slots, 1000):
+        assert fused_read.smem_bytes(cfg, C) \
+            == fused_read.launcher_smem_bytes(cfg, C), C
+
+
+@pytest.mark.parametrize("read", ["get", "scan"])
+def test_standby_read_raises_before_any_launch(cuda, read):
+    from repro_torch.analysis import epochsan
+    st = _store(SMALL, 200, cuda)
+    st.export_snapshot()
+    with epochsan.enabled() as san:
+        st.update(int_key(3), b"x")
+        st.begin_export()                     # a delta staged, not flipped
+        before = dict(build.LAUNCHES)
+        with pytest.raises(epochsan.EpochSanViolation) as ei:
+            if read == "get":
+                st._device_get(st._standby, [int_key(3)])
+            else:
+                st._device_scan(st._standby, [(int_key(3), int_key(5))],
+                                None)
+        assert ei.value.kind == epochsan.STANDBY_READ
+        assert build.LAUNCHES == before
+        st.flip()
+        assert st.get_batch([int_key(3)]) == [b"x"]
+    assert san.stats.violations == 1 and san.stats.stagings == 1
+
+
+def test_cuda_paths_under_strict_epochsan(cuda):
+    """A small CUDA store, a replicated group on the log feed and a
+    service drain under the strict sanitizer: no violation, and every
+    seam the paths pass counted."""
+    from repro_torch.analysis import epochsan
+    from repro_torch.core import HoneycombService, Get, Put, Scan
+    with epochsan.enabled() as san:
+        st = _store(SMALL, 200, cuda)
+        st.export_snapshot()
+        for i in range(0, 200, 3):
+            st.update(int_key(i), b"w")
+        st.export_snapshot()
+        st.collect_garbage()
+        assert st.get_batch([int_key(3)]) == [b"w"]
+        rs = ShardedHoneycombStore(
+            SMALL, heap_capacity=256, shards=2,
+            boundaries=uniform_int_boundaries(200, 2),
+            replication=ReplicationConfig(2, "round_robin", feed="log"),
+            device=cuda)
+        for i in range(200):
+            rs.put(int_key(i), b"v")
+        rs.export_snapshot()
+        for e in range(4):
+            for i in range(e, 200, 17):
+                rs.update(int_key(i), b"e%d" % e)
+            if e == 2:
+                [g.collect_garbage() for g in rs.shards]
+            rs.export_snapshot()
+            for r in (0, 1):
+                assert rs.get_batch([int_key(e)], replica=r) == [b"e%d" % e]
+        svc = HoneycombService(_sharded_legacy(cuda), batch_size=8,
+                               pipeline="pipelined")
+        ts = [svc.submit(Put(int_key(i), b"s")) for i in range(0, 200, 5)]
+        ts += [svc.submit(Get(int_key(i))) for i in range(0, 200, 10)]
+        ts.append(svc.submit(Scan(int_key(0), int_key(20),
+                                  expected_items=8)))
+        svc.drain()
+        assert all(t.done for t in ts)
+    st_ = san.stats
+    assert san.violations == [] and st_.violations == 0
+    assert min(st_.read_checks, st_.stagings, st_.flips, st_.gc_audits,
+               st_.dispatch_checks) > 0, st_
+
+
+def _sharded_legacy(device):
+    return ShardedHoneycombStore(
+        dataclasses.replace(SMALL, layout="legacy"), heap_capacity=256,
+        shards=2, boundaries=uniform_int_boundaries(200, 2),
+        replication=ReplicationConfig(2, "round_robin"), device=device)

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of Honeycomb once on one NVIDIA GPU.
 
 Builds the port's nine CUDA kernels from the seven sources in this
-checkout (one ``nvcc`` per source, all started together), then drives five
+checkout (one ``nvcc`` per source, all started together), then drives six
 main paths, the store's at the paper's node geometry (the default
 ``HoneycombConfig``: 32 B keys, 16 B values, 1273-word node images), each
 with every kernel's launch count set to 0 just before it and read just
@@ -30,7 +30,21 @@ after:
    and not a prefix, keys at a 4-byte offset); the leaf merge on wild
    leaves of both its instances (ranks that wrap, a live rank of
    INT32_MAX, ties).
-2. The range-sharded, replicated ``ShardedHoneycombStore``: 2 shards x 3
+2. The CPU baseline beside the store: the port's ``CpuOrderedStore``
+   (the paper's eRPC-Masstree stand-in) takes path 1's load (same keys,
+   same order) and its writes; path 1's GET and SCAN batches made after
+   the writes go through both stores in turns (baseline batch, store
+   batch, ...) with EpochSan off, every answer of both checked against
+   the dict model, and each store's puts/s, GET ops/s and SCAN ops/s on
+   the card's host print beside the baseline's ``CpuStoreStats`` and the
+   byte model.  Then the live store dry run
+   (``repro_torch.launch.store_dryrun``): ``live_sharded_smoke`` (4
+   shards, 1,024 keys) and ``live_replicated_smoke`` (2 shards x 2
+   replicas, 512 keys) at their defaults, whose own assertions hold the
+   fused reads to the per-level reference path on every shard and
+   follower; their sync, feed, cache and telemetry meters print a JSON
+   line each.
+3. The range-sharded, replicated ``ShardedHoneycombStore``: 2 shards x 3
    replicas (round-robin reads, the log-shipped follower feed, a flat
    relay topology) over 2^18 keys.  Update epochs replay each epoch's
    wire log on every follower through the log-replay kernel, or fall back
@@ -39,7 +53,7 @@ after:
    flip each in-sync follower's image and cache tier must equal its
    primary's bit for bit, and every GET/SCAN answer (16 SCANs of each
    batch straddle the shard boundary) must equal the dict model.
-3. The typed service front end over the legacy per-field layout:
+4. The typed service front end over the legacy per-field layout:
    ``HoneycombService`` (pipelined, telemetry on, 5% of requests traced)
    over a 2-shard, 2-replica ``ShardedHoneycombStore(layout="legacy")``
    of 2^18 keys loaded through the service.  16 epochs of 2,048 ops (20%
@@ -52,7 +66,7 @@ after:
    24 field tensors must equal its primary's after every drain, and each
    primary's snapshot must equal a fresh full publish of its heap at the
    end.
-4. The serving engine: ``ServingEngine`` with qwen2.5-3b at its full
+5. The serving engine: ``ServingEngine`` with qwen2.5-3b at its full
    widths and depth (random bf16 weights from ``--seed``), 8 slots, pages
    of 256 tokens, a ``PagedKVCache`` whose page table is a
    ``HoneycombStore`` on the card.  16 requests of 1,024-4,000 prompt
@@ -81,12 +95,12 @@ their redesign are printed beside this run's.  Both delta-sync scatters' byte bo
 distinct dirty rows only (``scatter_bound_ms``).
 
 EpochSan (``repro_torch.analysis.epochsan``) runs in strict mode over the
-correctness phases of paths 1, 2 and 3 and is off in every kernel timing
-(profiler and CUDA-event loops); the host-clock latencies those phases
-print include its checks.  The KSU/RSU entry points pass no seam: no store
-path calls them.  Each of paths 1, 2 and 3 prints its meters as one
-``{"epochsan": {...}}`` line, and any violation, or a seam the path
-passes left uncounted, fails the run.  A read of a delta staged and not
+correctness phases of paths 1, 3 and 4 and is off in every kernel timing
+(profiler and CUDA-event loops) and in path 2; the host-clock latencies
+those phases print include its checks.  The KSU/RSU entry points pass no
+seam: no store path calls them.  Each of paths 1, 3 and 4 prints its
+meters as one ``{"epochsan": {...}}`` line, and any violation, or a seam
+the path passes left uncounted, fails the run.  A read of a delta staged and not
 flipped must raise ``standby-read`` before any launch.  Last, the kernel
 check of ``python -m repro_torch.analysis`` runs on the card: every entry
 point of ``kernels/ops.py`` once on small seeded inputs, one launch of its
@@ -110,6 +124,7 @@ import argparse
 import bisect
 import collections
 import dataclasses
+import gc
 import json
 import statistics
 import struct
@@ -390,7 +405,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
 
-    # ---- build every kernel of the five paths, one nvcc per source -------
+    # ---- build every kernel of the six paths, one nvcc per source --------
     t0 = time.perf_counter()
     reports = build.build(build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.3f} s")
@@ -401,13 +416,20 @@ def main() -> int:
     flush = torch.empty(128 << 20, dtype=torch.int8, device=dev)
 
     print("== single-shard store ==")
-    kernels, launches, (snap, batches) = single_shard_path(args, dev, flush)
+    kernels, launches, (snap, batches), replay = single_shard_path(
+        args, dev, flush)
     print("== KSU/RSU over the live snapshot ==")
     t0 = time.perf_counter()
     ksu_rsu, ksu_launches = ksu_rsu_path(args, dev, flush, snap, batches)
     kernels += ksu_rsu
     print(f"KSU/RSU path with its timings: {time.perf_counter() - t0:.3f} s")
     del snap, batches
+    print("== CPU baseline beside the store ==")
+    t0 = time.perf_counter()
+    base_launches, live_launches = baseline_path(dev, replay)
+    del replay
+    print(f"baseline phase with the live smokes: "
+          f"{time.perf_counter() - t0:.3f} s")
     print("== 2-shard, 3-replica store ==")
     replay, repl_launches, scatter = replicated_path(args, dev, flush)
     row_scatter = next(k for k in kernels if k["name"] == "row_scatter")
@@ -437,6 +459,8 @@ def main() -> int:
                    "replicated": repl_launches[k["name"]],
                    "service_legacy": svc_launches[k["name"]],
                    "ksu_rsu": ksu_launches[k["name"]],
+                   "baseline": base_launches[k["name"]],
+                   "live_smokes": live_launches[k["name"]],
                    "serving": serve_launches[k["name"]]}
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
@@ -521,8 +545,9 @@ def single_shard_path(args, dev, flush):
     n = 1 << args.keys_log2
     store = HoneycombStore(cfg, device="cuda")
     model: dict[bytes, bytes] = {}
+    order = rng.permutation(n)
     t0 = time.perf_counter()
-    for i in rng.permutation(n):
+    for i in order:
         k, v = int_key(int(i)), value(int(i), 0)
         store.put(k, v)
         model[k] = v
@@ -851,7 +876,13 @@ def single_shard_path(args, dev, flush):
           f"check {check_us:.3f} us, a seam's test with the sanitizer off "
           f"{off_us:.3f} us, against a GET batch's host-clock median of "
           f"{statistics.median(lat1['get'] + lat2['get']) * 1e3:.3f} ms")
-    return kernels, launches, (snap, [keys for keys, _ in gets2])
+    # what the CPU baseline's phase replays: the load order, the writes,
+    # the model after them and the reads made after them
+    replay = {"store": store, "order": order, "writes": writes,
+              "model": model, "gets": [keys for keys, _ in gets2],
+              "scans": [ranges for ranges, _ in scans2], "load_s": load_s,
+              "write_s": write_s}
+    return kernels, launches, (snap, [keys for keys, _ in gets2]), replay
 
 
 def ksu_rsu_path(args, dev, flush, snap, batches):
@@ -1303,6 +1334,138 @@ def replay_case(S: int, d: int, offs, layout, gen) -> tuple:
     slots = torch.cat([slots, slots[-1:].expand(D - d)])
     entries = torch.cat([entries, entries[-1:].expand(D - d, -1)])
     return rows, slots, entries
+
+
+def baseline_path(dev, replay):
+    """The paper's yardstick beside the store on the card's host: the
+    port's ``CpuOrderedStore`` takes the single-shard path's load (same
+    keys, same order) and its writes, then that path's GET and SCAN
+    batches made after the writes go through both stores' ``get_batch``
+    and ``scan_batch`` in turns (baseline batch, store batch, ...), with
+    EpochSan off, on the host's clock.  Every answer of both must equal
+    the dict model.  Then the live store dry run
+    (``launch/store_dryrun.py``) at its defaults on ``dev``: its own
+    assertions hold, and its sync, feed, cache and telemetry meters print
+    a line each.  Returns the launch counts of the two store drives, each
+    set to 0 just before it."""
+    from repro_torch.analysis import epochsan
+    from repro_torch.baselines import CpuOrderedStore
+    from repro_torch.core.keys import int_key
+    from repro_torch.kernels import build
+    from repro_torch.launch import store_dryrun
+
+    store, model = replay["store"], replay["model"]
+    cfg = store.cfg
+    cpu = CpuOrderedStore(node_cap=cfg.node_cap)
+    order = replay["order"]
+    t0 = time.perf_counter()
+    for i in order:
+        cpu.put(int_key(int(i)), value(int(i), 0))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for op, i, gen in replay["writes"]:
+        k = int_key(i)
+        if op == 0:
+            cpu.update(k, value(i, gen))
+        elif op == 1:
+            cpu.delete(k)
+        else:
+            cpu.put(k + b"\x01", value(i, gen))
+    write_s = time.perf_counter() - t0
+    n, n_writes = len(order), len(replay["writes"])
+    print(f"baseline load: {n} puts in {load_s:.3f} s ({n / load_s:.0f} "
+          f"puts/s; the store's, host tree only, in the single-shard path: "
+          f"{n / replay['load_s']:.0f} puts/s, not in turns); {n_writes} "
+          f"writes in {write_s * 1e3:.3f} ms ({n_writes / write_s:.0f}/s; "
+          f"the store's {n_writes / replay['write_s']:.0f}/s, not in "
+          f"turns); {len(cpu.leaves)} leaves")
+
+    # ---- GET and SCAN batches in turns, EpochSan off ----------------------
+    check(epochsan.get() is None, "EpochSan on around the timed loop")
+    gets, scans = replay["gets"], replay["scans"]
+    secs = {(who, op): [] for who in ("baseline", "store")
+            for op in ("get", "scan")}
+    answers = {key: [] for key in secs}
+    stores = {"baseline": cpu, "store": store}
+    full_gcs = gc.get_stats()[2]["collections"]
+    build.reset_launches()
+    for op, batches in (("get", gets), ("scan", scans)):
+        for batch in batches:
+            for who in ("baseline", "store"):
+                fn = getattr(stores[who], f"{op}_batch")
+                t = time.perf_counter()
+                got = fn(batch)
+                secs[who, op].append(time.perf_counter() - t)
+                answers[who, op].append(got)
+    base_launches = dict(build.LAUNCHES)
+    full_gcs = gc.get_stats()[2]["collections"] - full_gcs
+    check(epochsan.get() is None, "EpochSan on around the timed loop")
+    keys_sorted = sorted(model)
+    for who in ("baseline", "store"):
+        for keys, got in zip(gets, answers[who, "get"]):
+            check(got == [model.get(k) for k in keys],
+                  f"{who} GET batch differs from the model")
+        for ranges, got in zip(scans, answers[who, "scan"]):
+            check(got == [model_scan(keys_sorted, model, lo, hi)
+                          for lo, hi in ranges],
+                  f"{who} SCAN batch differs from the model")
+    check(base_launches["fused_get"] == len(gets)
+          and base_launches["fused_scan"] == len(scans),
+          f"store launches in the baseline phase {base_launches}")
+    print(f"checked {len(gets) * BATCH} GETs and {len(scans) * BATCH} SCANs "
+          f"of each store against the model")
+    rate = {}
+    for op in ("get", "scan"):
+        for who in ("baseline", "store"):
+            xs = secs[who, op]
+            rate[who, op] = len(xs) * BATCH / sum(xs)
+            med = statistics.median(xs)
+            print(f"  {who} {op.upper()}: {rate[who, op]:.0f} ops/s "
+                  f"(batches of {BATCH} in turns, host clock; median batch "
+                  f"{med * 1e3:.3f} ms, {BATCH / med:.0f} ops/s at the "
+                  f"median; max {max(xs) * 1e3:.3f} ms in turn "
+                  f"{xs.index(max(xs))})")
+        print(f"  store / baseline {op.upper()} ops/s: "
+              f"{rate['store', op] / rate['baseline', op]:.4f}")
+    print(f"  the interpreter's full garbage collections during the timed "
+          f"turns: {full_gcs}")
+    print(f"  baseline {cpu.stats}")
+    interior = cfg.header_bytes + cfg.shortcut_bytes + cfg.segment_bytes
+    print(f"  byte model: node_bytes {cfg.node_bytes}, header + shortcut + "
+          f"segment bytes {interior} per interior level")
+
+    # ---- the live store dry run at its defaults ---------------------------
+    build.reset_launches()
+    for name in ("live_sharded_smoke", "live_replicated_smoke"):
+        t0 = time.perf_counter()
+        out = getattr(store_dryrun, name)(device=dev.type)
+        took = time.perf_counter() - t0
+        tel = out["telemetry"]
+        rp = out["read_path"]
+        check(rp["vmem_hits"] > 0 and rp["fused_matches_reference"],
+              f"{name}: read path {rp}")
+        sync = {k: out[k] for k in (
+            "image_dma_count", "image_bytes", "per_shard_bytes_synced",
+            "per_shard_delta_syncs", "dirty_shard_syncs_after_confined_burst",
+            "log_wire_bytes", "load_imbalance", "primary_image_dmas",
+            "primary_sync_bytes", "replication_bytes", "replica_lag_epochs",
+            "replica_staleness", "lagging_skips") if k in out}
+        if "pipelined_epoch" in out:
+            sync["pipelined_epoch"] = out["pipelined_epoch"]
+        print(json.dumps({name: {"seconds": took, "sync": sync}}))
+        if "feed" in out:
+            print(json.dumps({name: {"feed": out["feed"]}}))
+        print(json.dumps({name: {"cache": rp}}))
+        print(json.dumps({name: {"telemetry": {
+            "metrics": len(tel["snapshot"]),
+            "sampled_traces": tel["sampled_traces"],
+            "last_trace": tel["last_trace"]}}}))
+    live_launches = dict(build.LAUNCHES)
+    check(live_launches["fused_get"] > 0 and live_launches["row_scatter"] > 0
+          and live_launches["log_replay"] > 0,
+          f"live smokes' launches {live_launches}")
+    print(f"  live smokes' launches {live_launches}")
+    return base_launches, live_launches
 
 
 def replicated_path(args, dev, flush):

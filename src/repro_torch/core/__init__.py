@@ -2,9 +2,10 @@
 device read path (packed and legacy layouts), the range-sharded router,
 replication, the typed service front end with its out-of-order scheduler,
 and telemetry."""
-from .config import (REPLICA_FEEDS, REPLICA_POLICIES, FeedTopology,
-                     HoneycombConfig, ReplicationConfig, ServiceConfig,
-                     ShardingConfig, TelemetryConfig, bucket_pow2)
+from .config import (DEFAULT_CONFIG, REPLICA_FEEDS, REPLICA_POLICIES,
+                     FeedTopology, HoneycombConfig, ReplicationConfig,
+                     ServiceConfig, ShardingConfig, TelemetryConfig,
+                     bucket_pow2)
 from .telemetry import (CLOCK, Clock, Histogram, MetricSample,
                         MetricsRegistry, Span, Telemetry, Trace, Tracer,
                         chrome_trace_events, merge_stats, parse_prometheus,
@@ -28,7 +29,7 @@ from .router import (ShardedHoneycombStore, aggregate_stats,
 from .scheduler import OutOfOrderScheduler, Request
 
 __all__ = [
-    "HoneycombConfig", "bucket_pow2", "ShardingConfig", "ReplicationConfig",
+    "HoneycombConfig", "DEFAULT_CONFIG", "bucket_pow2", "ShardingConfig", "ReplicationConfig",
     "FeedTopology", "REPLICA_FEEDS", "REPLICA_POLICIES", "ServiceConfig",
     "TelemetryConfig",
     "Get", "Scan", "Put", "Update", "Delete", "OPS_BY_KIND", "WRITE_KINDS",

@@ -16,7 +16,8 @@ Mirrors the paper's node geometry (Section 3.1) as fixed-width slots:
                                 the paper's wrap-forces-merge rule
 
 Everything the reference's configs hold that the port runs:
-``HoneycombConfig`` (both snapshot layouts), ``bucket_pow2``, the
+``HoneycombConfig`` (both snapshot layouts, and the byte model the
+benchmarks meter), ``DEFAULT_CONFIG``, ``bucket_pow2``, the
 range-sharding config, the replication configs (feeds, relay topology,
 read-spreading policies) and the service and telemetry configs.
 """
@@ -136,6 +137,31 @@ class HoneycombConfig:
     @property
     def max_inline_val_bytes(self) -> int:
         return self.val_words * 4
+
+    # Byte model of the benchmarks' bytes-fetched accounting (paper
+    # Section 3.1: "a search reads at most 1.5 KB of an 8 KB node"), the
+    # reference's formulas.  Sizes are the packed lane widths gathered.
+    @property
+    def header_bytes(self) -> int:
+        return 48
+
+    @property
+    def shortcut_bytes(self) -> int:
+        return self.n_shortcuts * (self.max_key_bytes + 4)
+
+    @property
+    def segment_bytes(self) -> int:
+        return self.segment_items * (self.max_key_bytes + self.val_words * 4 + 4)
+
+    @property
+    def log_bytes(self) -> int:
+        return self.log_cap * (self.max_key_bytes + self.val_words * 4 + 12)
+
+    @property
+    def node_bytes(self) -> int:
+        return (self.header_bytes + self.shortcut_bytes
+                + self.node_cap * (self.max_key_bytes + self.val_words * 4 + 4)
+                + self.log_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,3 +342,6 @@ class ReplicationConfig:
             f"unknown replica feed {self.feed!r} (one of {REPLICA_FEEDS})")
         assert isinstance(self.topology, FeedTopology), (
             "topology must be a FeedTopology")
+
+
+DEFAULT_CONFIG = HoneycombConfig()

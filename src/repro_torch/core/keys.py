@@ -5,12 +5,13 @@ equals lexicographic *lane* order (unsigned), with key length as the tie
 break for prefix relationships.  A comparison is then a vectorized lane
 compare plus a first-difference select.
 
-Host helpers use numpy.  ``torch_key_cmp`` is the batched device twin of
-the reference's ``jax_key_cmp``.  PyTorch's ``uint32`` lacks comparison and
-gather kernels on the CPU, so the port carries every key lane as the
-``int32`` bit view of its u32 word and compares unsigned words by flipping
-the sign bit first (``x ^ INT32_MIN`` maps unsigned order onto signed
-order).
+Host helpers use numpy.  ``torch_key_cmp``, ``torch_key_less`` and
+``torch_key_leq`` are the batched device twins of the reference's
+``jax_key_cmp``, ``jax_key_less`` and ``jax_key_leq``.  PyTorch's
+``uint32`` lacks comparison and gather kernels on the CPU, so the port
+carries every key lane as the ``int32`` bit view of its u32 word and
+compares unsigned words by flipping the sign bit first (``x ^
+INT32_MIN`` maps unsigned order onto signed order).
 """
 from __future__ import annotations
 
@@ -26,6 +27,13 @@ def pack_key(key: bytes, key_words: int) -> np.ndarray:
         raise ValueError(f"key of {len(key)} bytes exceeds {key_words * 4}")
     buf = key + b"\x00" * (key_words * 4 - len(key))
     return np.frombuffer(buf, dtype=">u4").astype(np.uint32)
+
+
+def unpack_key(lanes: np.ndarray, length: int) -> bytes:
+    """The first ``length`` bytes of big-endian packed lanes (u32 words or
+    their int32 bit views)."""
+    buf = np.asarray(lanes).astype(">u4").tobytes()
+    return buf[:length]
 
 
 def pack_keys(keys: list[bytes], key_words: int) -> tuple[np.ndarray, np.ndarray]:
@@ -50,6 +58,14 @@ def key_cmp(a: np.ndarray, alen: int, b: np.ndarray, blen: int) -> int:
     return (alen > blen) - (alen < blen)
 
 
+def key_less(a, alen, b, blen) -> bool:
+    return key_cmp(a, alen, b, blen) < 0
+
+
+def key_leq(a, alen, b, blen) -> bool:
+    return key_cmp(a, alen, b, blen) <= 0
+
+
 # --- torch comparisons (broadcastable) ---------------------------------------
 
 def torch_key_cmp(a: torch.Tensor, alen: torch.Tensor, b: torch.Tensor,
@@ -68,6 +84,14 @@ def torch_key_cmp(a: torch.Tensor, alen: torch.Tensor, b: torch.Tensor,
     lane_sign = torch.where(av < bv, -1, 1).to(torch.int32)
     len_sign = torch.sign(alen - blen).to(torch.int32)
     return torch.where(any_neq, lane_sign, len_sign)
+
+
+def torch_key_less(a, alen, b, blen) -> torch.Tensor:
+    return torch_key_cmp(a, alen, b, blen) < 0
+
+
+def torch_key_leq(a, alen, b, blen) -> torch.Tensor:
+    return torch_key_cmp(a, alen, b, blen) <= 0
 
 
 def int_key(x: int, width: int = 8) -> bytes:

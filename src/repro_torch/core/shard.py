@@ -594,11 +594,13 @@ class StoreShard:
             return []
         return self._device_get(self._snapshot_for_read(), keys)
 
-    def _device_get(self, snap: TreeSnapshot,
-                    keys: list[bytes]) -> list[bytes | None]:
+    def _device_get(self, snap: TreeSnapshot, keys: list[bytes],
+                    read_backend: str | None = None) -> list[bytes | None]:
         """Execute one dense GET batch against ``snap`` — the active
         snapshot, or a follower replica's image (core/replica.py serves
-        followers through the primary's dispatch)."""
+        followers through the primary's dispatch).  ``read_backend=
+        "reference"`` reads through the per-level path whatever the
+        configuration says (the fused path's check)."""
         san = _epochsan.get()
         if san is not None:   # reads may never see an unflipped standby
             san.check_read(self, snap)
@@ -606,7 +608,7 @@ class StoreShard:
         self.pipeline_stats.dispatched_lanes += len(keys)
         self.pipeline_stats.padded_lanes += len(padded)
         lanes, lens = pack_keys(padded, self.cfg.key_words)
-        rb = self._read_backend()
+        rb = read_backend or self._read_backend()
         kernel_ops.record_read_dispatch("get", rb, self.cfg)
         lo, hi = self.tree.epochs.accel_begin_batch(len(keys))
         try:
@@ -639,10 +641,12 @@ class StoreShard:
 
     def _device_scan(self, snap: TreeSnapshot,
                      ranges: list[tuple[bytes, bytes]],
-                     fallback_rv: int | None
+                     fallback_rv: int | None,
+                     read_backend: str | None = None
                      ) -> list[list[tuple[bytes, bytes]]]:
         """Execute one dense SCAN batch against ``snap``; truncated
-        requests fall back to the host tree at ``fallback_rv``."""
+        requests fall back to the host tree at ``fallback_rv``.
+        ``read_backend`` as for ``_device_get``."""
         san = _epochsan.get()
         if san is not None:   # reads may never see an unflipped standby
             san.check_read(self, snap)
@@ -652,7 +656,7 @@ class StoreShard:
         self.pipeline_stats.padded_lanes += len(padded)
         lo_l, lo_n = pack_keys([r[0] for r in padded], self.cfg.key_words)
         hi_l, hi_n = pack_keys([r[1] for r in padded], self.cfg.key_words)
-        rb = self._read_backend()
+        rb = read_backend or self._read_backend()
         kernel_ops.record_read_dispatch("scan", rb, self.cfg)
         slo, shi = self.tree.epochs.accel_begin_batch(len(ranges))
         try:

@@ -1341,3 +1341,54 @@ def _sharded_legacy(device):
         dataclasses.replace(SMALL, layout="legacy"), heap_capacity=256,
         shards=2, boundaries=uniform_int_boundaries(200, 2),
         replication=ReplicationConfig(2, "round_robin"), device=device)
+
+
+@pytest.mark.parametrize("name", ["live_sharded_smoke",
+                                  "live_replicated_smoke"])
+def test_live_store_smokes_on_cuda_match_cpu(cuda, name):
+    """The live store dry run at its defaults on the card: its own
+    assertions hold (the fused kernel equals the per-level reference read
+    on every shard and follower), its kernels launch, and with the clock
+    frozen the whole result, meters and telemetry, equals the CPU run's."""
+    from repro_torch.core import CLOCK
+    from repro_torch.kernels import ops
+    from repro_torch.launch import store_dryrun
+    out = []
+    for device in ("cpu", cuda):
+        ops.reset_read_dispatches()
+        build.reset_launches()
+        with CLOCK.frozen():
+            out.append(getattr(store_dryrun, name)(device=device))
+    launches = dict(build.LAUNCHES)
+    assert launches["fused_get"] > 0 and launches["row_scatter"] > 0
+    if name == "live_replicated_smoke":
+        assert launches["log_replay"] > 0
+    assert out[1] == out[0]
+
+
+def test_cpu_baseline_matches_cuda_store(cuda):
+    """The port's CPU baseline and a HoneycombStore on the card, 2^14 keys
+    loaded and rewritten alike: equal GET and SCAN answers."""
+    from repro_torch.baselines import CpuOrderedStore
+    cfg = HoneycombConfig()
+    n = 1 << 14
+    hc = HoneycombStore(cfg, device=cuda)
+    cp = CpuOrderedStore(node_cap=cfg.node_cap)
+    rng = np.random.default_rng(2)
+    for i in rng.permutation(n):
+        hc.put(int_key(int(i)), b"v%06d" % i)
+        cp.put(int_key(int(i)), b"v%06d" % i)
+    for i in rng.integers(0, n, 2000):
+        k = int_key(int(i))
+        if rng.random() < 0.7:
+            hc.update(k, b"u%06d" % i)
+            cp.update(k, b"u%06d" % i)
+        else:
+            hc.delete(k)
+            cp.delete(k)
+    keys = [int_key(int(i)) for i in rng.integers(0, n + 100, 1024)]
+    assert hc.get_batch(keys) == cp.get_batch(keys)
+    ranges = [(int_key(int(i)), int_key(int(i) + 7))
+              for i in rng.integers(0, n, 1024)]
+    assert hc.scan_batch(ranges) == cp.scan_batch(ranges)
+    assert cp.stats.gets == 1024 and cp.stats.scans == 1024

@@ -128,13 +128,22 @@ def _imports_of(path: Path) -> list[str]:
 
 def test_port_imports_neither_jax_nor_reference():
     """Importing every module of the port, and every module chip_smoke.py
-    imports, leaves jax and repro out of sys.modules."""
+    and the port's example scripts (examples/torch_*.py) import, leaves
+    jax and repro out of sys.modules."""
     pkg = ROOT / "src" / "repro_torch"
     modules = sorted(
         "repro_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
         for p in pkg.rglob("*.py") if p.name != "__init__.py")
     modules += _imports_of(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert {p.name for p in examples} >= {"torch_quickstart.py",
+                                          "torch_kv_serving.py"}
+    for p in examples:
+        modules += _imports_of(p)
     assert "repro_torch.core.shard" in modules and "torch" in modules
+    assert "repro_torch.baselines.cpu_store" in modules
+    assert "repro_torch.launch.store_dryrun" in modules
+    assert "repro_torch.serving.engine" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of Honeycomb once on one NVIDIA GPU.
 
 Builds the port's nine CUDA kernels from the seven sources in this
-checkout (one ``nvcc`` per source, all started together), then drives six
+checkout (one ``nvcc`` per source, all started together), then drives seven
 main paths, the store's at the paper's node geometry (the default
 ``HoneycombConfig``: 32 B keys, 16 B values, 1273-word node images), each
 with every kernel's launch count set to 0 just before it and read just
@@ -77,6 +77,30 @@ after:
    tolerance of its row's maximum in a plain full forward, and
    teacher-forced decode logits, through the kernel and through the plain
    attention, must agree with that forward.
+6. The MoE, SSM and hybrid models served the same way, three engines one
+   after another (each freed before the next), 8 slots, pages of 256
+   tokens, 16 pages a sequence, random bf16 weights from ``--seed``:
+   olmoe-1b-7b (64 experts, top 8) and mamba2-1.3b at their full widths
+   and depth, jamba-v0.1-52b at its full widths cut to one superblock of
+   8 layers ('MMMGMMMM'; the whole model's 103 GB does not fit in the
+   card's 80).  8 requests of 1,024-2,048 prompt tokens and 16 new
+   tokens each: every decode step looks its block tables up with one
+   fused GET batch, runs paged attention in each attention layer (16,
+   none, 1) and keeps each mamba layer's state at its request's slot
+   row.  The parameter counts must equal the reference's, the page
+   table a dict model, every served token's logit lie within its
+   engine's ``MOE_SSM_TOL`` of its row's maximum in a full forward, and
+   a share of them at least that entry's floor be the forward's argmax;
+   for the mamba models prefill of all but 8 prompt tokens and 8
+   teacher-forced decode steps must give the full forward's logits (the
+   chunked scan against the recurrence), in bf16 within that entry's
+   handoff tolerance, every MoE route forced to the forward's (with its
+   own routes within ``MOE_OWN_ROUTES_TOL``, the flipped routes
+   counted), and
+   with f32 weights within ``F32_TOL``, as must mamba2's served tokens
+   through a second engine with those f32 weights (its slot rows held
+   tight); on one olmoe layer in f32 ``moe_dense`` and ``moe_ragged``
+   must agree on a decode batch and a 2,048-token prefill (both timed).
 
 Then each kernel is held against its plain PyTorch version on the card at
 the shapes its path gave it; the log replay also at D = 1, 32, 1,024 and
@@ -85,7 +109,8 @@ write nothing; the call right after must be exact), and it is timed at
 the path's usual D and at D = 1,024; the paged-attention kernel also at the
 attention shapes of gemma2-27b (32 heads, 16 KV heads, soft-capping, a
 4,096-position window) and gemma3-12b (head dim 256, a 1,024-position
-window) on seeded synthetic pools, and its span plan is printed.  Each
+window) on seeded synthetic pools, and its span plan is printed; and at
+the olmoe (G = 1) and jamba (G = 4) engines' own shapes and live lengths.  Each
 kernel's device time comes from a torch.profiler trace with the L2 cache
 flushed before every launch (the block-mode search and the leaf merge
 in two turns); the time per call through its Python wrapper and the
@@ -123,6 +148,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -184,6 +210,51 @@ BEFORE_MS = {"fused_get": 0.0354, "fused_scan": 0.0365,
 # kernel: (name, H, KVH, D, softcap, window) of gemma2-27b and gemma3-12b
 PAGED_SHAPES = (("gemma2-27b", 32, 16, 128, 50.0, 4096),
                 ("gemma3-12b", 16, 8, 256, 0.0, 1024))
+# the MoE/SSM serving path: three engines of 8 slots, pages of 256 tokens
+# and 16 pages a sequence; 8 requests of 1,024-2,048 prompt tokens and 16
+# new tokens each.  (arch, layers kept or None for all, the reference's
+# param_count() and active_param_count() at those layers)
+MOE_SSM_MODELS = (
+    ("olmoe-1b-7b", None, 6_919_096_320, 1_281_951_744),
+    ("mamba2-1.3b", None, 1_446_812_672, 1_446_812_672),
+    ("jamba-v0.1-52b", 8, 13_267_656_416, 3_402_653_408))
+MOE_SSM_MAX_SEQ = 4096
+MOE_SSM_REQUESTS = 8
+MOE_SSM_PROMPTS = (1024, 2048)  # prompt tokens, least and most
+MOE_SSM_NEW_TOKENS = 16
+MOE_SSM_TRACE_AT = 4            # trace decode steps 4-6
+MOE_IMPL_ARCH = "olmoe-1b-7b"   # the dense/ragged MoE check's model
+MOE_PREFILL_TOKENS = 2048       # and its prefill
+# per engine, the bf16 checks' bounds, each set before the card run from
+# scripts/torch_serving_tolerance.py (smoke widths at these depths and the
+# full configs' vocabularies, seeds 0-5) by one rule: 1.5 times the
+# rehearsal's largest figure, rounded up to a multiple of 1/32; the
+# argmax-agreement floor is its lowest share less 0.15.  "gap": a served
+# token's logit below its row's max in a full forward (largest 0.7812,
+# 0.4375, 0.3125); "agree": served tokens that are the forward's argmax
+# (lowest 111, 119, 120 of 128); "handoff": prefill + teacher-forced
+# decode against the full forward with every MoE route forced to the
+# forward's (largest 0.5735 for mamba2, 0.1953 for jamba; with their own
+# routes jamba's reached 1.7852 after 2 flipped routes)
+MOE_SSM_TOL = {
+    "olmoe-1b-7b": {"gap": 1.1875, "agree": 111 / 128 - 0.15},
+    "mamba2-1.3b": {"gap": 0.65625, "agree": 119 / 128 - 0.15,
+                    "handoff": 0.875},
+    "jamba-v0.1-52b": {"gap": 0.46875, "agree": 120 / 128 - 0.15,
+                       "handoff": 0.3125}}
+# the handoff with its own MoE routes, where a flipped route moves a token
+# by an expert's share: the first rehearsal's bound (its largest figure,
+# 1.5469, times 1.5, rounded up), held beside the forced one
+MOE_OWN_ROUTES_TOL = 2.5
+# the handoff again with f32 weights, where the chunked scan and the
+# recurrence differ in summation order only (the rehearsal's largest f32
+# figure: 0.0006, after 48 mamba2 layers); and mamba2's served tokens
+# through an f32 engine, which has no KV pool to round to bf16 and no
+# route to flip (the rehearsal's f32 gaps: 0.0 at every seed)
+F32_TOL = 0.01
+# moe_dense against moe_ragged on one olmoe layer in f32: the same routes,
+# sums of 2,048 (d) and 1,024 (f) products in other orders
+MOE_IMPL_TOL = dict(rtol=1e-4, atol=1e-4)
 # entries of the log replay's checks against its plain version; then
 # (entries, position of the bad pair) of its rejected calls
 REPLAY_CHECK_D = (1, 29, 1000, 4000)
@@ -405,7 +476,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
 
-    # ---- build every kernel of the six paths, one nvcc per source --------
+    # ---- build every kernel of the seven paths, one nvcc per source --------
     t0 = time.perf_counter()
     reports = build.build(build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.3f} s")
@@ -450,6 +521,16 @@ def main() -> int:
     kernels.append(paged)
     print(f"serving path with its checks and timings: "
           f"{time.perf_counter() - t0:.3f} s")
+    print("== serving engine: olmoe-1b-7b, mamba2-1.3b, jamba-v0.1-52b "
+          "(one superblock) ==")
+    t0 = time.perf_counter()
+    moe_ssm_launches, moe_ssm_shapes = moe_ssm_serving_path(args, dev,
+                                                            flush)
+    paged["shapes"] += moe_ssm_shapes
+    paged["max_abs_err"] = max([paged["max_abs_err"]]
+                               + [x["max_abs_err"] for x in moe_ssm_shapes])
+    print(f"MoE/SSM serving path with its checks and timings: "
+          f"{time.perf_counter() - t0:.3f} s")
     print("== kernel check: every entry point of kernels/ops.py ==")
     t0 = time.perf_counter()
     kernel_check_phase(dev)
@@ -461,7 +542,8 @@ def main() -> int:
                    "ksu_rsu": ksu_launches[k["name"]],
                    "baseline": base_launches[k["name"]],
                    "live_smokes": live_launches[k["name"]],
-                   "serving": serve_launches[k["name"]]}
+                   "serving": serve_launches[k["name"]],
+                   "serving_moe_ssm": moe_ssm_launches[k["name"]]}
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
         check(k["launches"] > 0, f"{k['name']} never launched")
@@ -485,8 +567,11 @@ def smoke_smem_bytes() -> dict:
     cfg = HoneycombConfig()
     LW = NodeImageLayout.for_config(cfg).log_entry_words
     qwen = get_config("qwen2.5-3b")
-    heads = [(qwen.n_heads, qwen.n_kv_heads, qwen.head_dim)] + [
-        (H, KVH, D) for _, H, KVH, D, _, _ in PAGED_SHAPES]
+    heads = [(qwen.n_heads, qwen.n_kv_heads, qwen.head_dim,
+              SERVING_MAX_SEQ)] + [
+        (H, KVH, D, SERVING_MAX_SEQ) for _, H, KVH, D, _, _ in PAGED_SHAPES]
+    heads += [(c.n_heads, c.n_kv_heads, c.head_dim, MOE_SSM_MAX_SEQ)
+              for c in map(get_config, ("olmoe-1b-7b", "jamba-v0.1-52b"))]
     B, P = SERVING_SLOTS, SERVING_PAGE
     return {
         "ops.key_search_image": max(key_search.image_plan(n, kw).smem_bytes
@@ -499,9 +584,9 @@ def smoke_smem_bytes() -> dict:
                                       .smem_bytes for d in REPLAY_CHECK_D
                                       + (REPLAY_TIMING_D,)),
         "ops.paged_attention": max(
-            paged_attention.span_plan(B, H, KVH, SERVING_MAX_SEQ // P, P, D,
-                                      dt).smem
-            for H, KVH, D in heads for dt in (torch.bfloat16, torch.float32)),
+            paged_attention.span_plan(B, H, KVH, L // P, P, D, dt).smem
+            for H, KVH, D, L in heads
+            for dt in (torch.bfloat16, torch.float32)),
     }
 
 
@@ -2477,21 +2562,11 @@ def serving_path(args, dev, flush):
           f"a request did not return {new} tokens")
     check(eng.kv.pages_in_use == 1, f"{eng.kv.pages_in_use} pages in use "
           f"after the run, not the scratch page alone")
-    table, puts, deletes = {}, 0, 0
-    for rid, S in zip(rids, lens):
-        for b in range(-(-S // P)):             # prefill: the padded prompt
-            table[(rid, b)] = True
-            puts += 1
-        for pos in range(S, S + new - 1):       # each decode step's token
-            if (rid, pos // P) not in table:
-                table[(rid, pos // P)] = True
-                puts += 1
-        for b in range(-(-(S + new) // P)):     # free on completion
-            deletes += table.pop((rid, b), False)
+    puts, deletes, left = page_table_model(rids, lens, P, new)
     st = eng.kv.table.stats
-    check(not table and st.puts == puts and st.deletes == deletes,
+    check(not left and st.puts == puts and st.deletes == deletes,
           f"page table puts/deletes {st.puts}/{st.deletes}, the dict model "
-          f"{puts}/{deletes} ({len(table)} pages left)")
+          f"{puts}/{deletes} ({left} pages left)")
     steps = eng.stats["decode_steps"]
     check(launches["paged_attention"] == cfg.n_layers * steps,
           f"{launches['paged_attention']} paged_attention launches for "
@@ -2763,6 +2838,487 @@ def paged_shape_check(args, dev, flush, name, H, KVH, D, softcap, window):
     del kp, vp
     torch.cuda.empty_cache()
     return {"name": name, "ms": ms, "bound_ms": bound_ms,
+            "max_abs_err": err}
+
+
+def moe_ssm_serving_path(args, dev, flush):
+    """Path 6: ``ServingEngine`` with olmoe-1b-7b and mamba2-1.3b at full
+    widths and depth and jamba-v0.1-52b at full widths cut to one
+    superblock, one engine after another (each freed before the next),
+    random bf16 weights from ``--seed``, 8 slots, pages of 256 tokens, 16
+    pages a sequence; 8 requests of 1,024-2,048 prompt tokens and 16 new
+    tokens each (``serve_moe_ssm``).  Returns the launch counts summed
+    over the three engines' runs and the paged-attention kernel's checks
+    at the olmoe (G = 1) and jamba (G = 4) engines' shapes."""
+    launches, shapes = collections.Counter(), []
+    for arch, layers, n_params, n_active in MOE_SSM_MODELS:
+        t0 = time.perf_counter()
+        counts, shape = serve_moe_ssm(args, dev, flush, arch, layers,
+                                      n_params, n_active)
+        launches.update(counts)
+        shapes += shape
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {arch}: {time.perf_counter() - t0:.3f} s with its checks "
+              f"and timings")
+    return launches, shapes
+
+
+def page_table_model(rids, lens, P: int, new: int) -> tuple:
+    """(puts, deletes, pages left) of a dict model of the engine's page
+    table: each request's padded prompt at prefill, a page for each decode
+    step's token where its page is new, every page freed on completion."""
+    table, puts, deletes = {}, 0, 0
+    for rid, S in zip(rids, lens):
+        for b in range(-(-S // P)):             # prefill: the padded prompt
+            table[(rid, b)] = True
+            puts += 1
+        for pos in range(S, S + new - 1):       # each decode step's token
+            if (rid, pos // P) not in table:
+                table[(rid, pos // P)] = True
+                puts += 1
+        for b in range(-(-(S + new) // P)):     # free on completion
+            deletes += table.pop((rid, b), False)
+    return puts, deletes, len(table)
+
+
+def full_logits(model, toks: np.ndarray, dev) -> torch.Tensor:
+    """A plain full forward's logits [S, V] of ``toks``, right-padded to a
+    multiple of 64: an SSD chunk must divide the length, and the pad
+    changes no earlier logit (every layer is causal)."""
+    padded = np.pad(toks, (0, -len(toks) % 64))
+    return model(torch.from_numpy(padded[None]).to(dev))[0, :len(toks)]
+
+
+def served_gap(model, prompts: dict, outs: dict, dev) -> tuple:
+    """Every served token against a plain full forward over its prompt and
+    the tokens served before it: (largest gap between a served token's
+    logit and its row's maximum, served tokens that are the forward's
+    argmax, served tokens)."""
+    gap, agree, n = 0.0, 0, 0
+    for rid, prompt in prompts.items():
+        out = torch.tensor(outs[rid])
+        seq = np.concatenate([prompt, out[:-1].numpy().astype(np.int32)])
+        logits = full_logits(model, seq, dev)[len(prompt) - 1:]
+        chosen = logits[torch.arange(len(out), device=dev), out.to(dev)]
+        gap = max(gap, float((logits.max(dim=-1).values - chosen).max()))
+        agree += int((logits.argmax(dim=-1).cpu() == out).sum())
+        n += len(out)
+        del logits
+    return gap, agree, n
+
+
+@contextlib.contextmanager
+def moe_routes(forced=None):
+    """Record the top-k expert indices of every MoE router call, in call
+    order, by wrapping ``moe.router_probs``.  With ``forced`` (index
+    tensors [B, n, k], one a call in the same order), each call routes
+    its first n positions to those experts instead, weighted by its own
+    probabilities renormalised over them."""
+    from repro_torch.models import moe
+    plain, calls, queue = moe.router_probs, [], list(forced or ())
+
+    def routed(p, x, cfg):
+        w, i = plain(p, x, cfg)
+        if queue:
+            f = queue.pop(0)
+            i = i.clone()
+            i[:, :f.shape[1]] = f
+            probs = torch.softmax(torch.matmul(x.to(torch.float32),
+                                               p["router"]), dim=-1)
+            w = probs.gather(-1, i)
+            w = w / w.sum(dim=-1, keepdim=True)
+        calls.append(i)
+        return w, i
+
+    moe.router_probs = routed
+    try:
+        yield calls
+    finally:
+        moe.router_probs = plain
+
+
+def teacher_forced(model, prompt: np.ndarray, S: int, P: int,
+                   dev) -> torch.Tensor:
+    """Logits [k + 1, V] of prefill of ``prompt[:S]`` (padded to pages,
+    its state taken at the last real token) and of k teacher-forced
+    decode steps on ``prompt[S:]``, k = len(prompt) - S."""
+    from repro_torch.models import transformer as tf
+    padded = np.pad(prompt[:S], (0, -S % P))
+    with torch.inference_mode():
+        first, cache = model.prefill(torch.from_numpy(padded[None]).to(dev),
+                                     P, S - 1)
+        layers = {n: {k: torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+                      if k in tf.KV_LEAVES else t for k, t in c.items()}
+                  for n, c in cache.layers.items()}
+    c = tf.DecodeCache(layers, torch.arange(len(padded) // P + 1,
+                                            dtype=torch.int32,
+                                            device=dev)[None],
+                       torch.tensor([S], dtype=torch.int32, device=dev))
+    rows = [first[0]]
+    for tok in prompt[S:]:
+        lg, c = model.decode_step(c, torch.tensor([[int(tok)]], device=dev),
+                                  P)
+        rows.append(lg[0])
+    return torch.stack(rows)
+
+
+def handoff_drift(model, prompt: np.ndarray, P: int, dev) -> dict:
+    """Prefill of ``prompt[:-k]`` and k teacher-forced decode steps
+    (``teacher_forced``) against a full forward's logits at those k + 1
+    positions, k = TEACHER_STEPS.  A model with MoE layers runs the
+    handoff twice: with its own routes, and with every route forced to the
+    full forward's, so that only rounding separates the two.  Returns
+    {"drift": max abs difference, "forced": the same with the routes
+    forced (None without MoE), "flips": (MoE layer, position) pairs whose
+    own experts differ from the full forward's, "routes": the pairs
+    compared, "top": max |logit|}."""
+    S = len(prompt) - TEACHER_STEPS
+    with moe_routes() as full_routes:
+        full = full_logits(model, prompt, dev)[S - 1:]
+    with moe_routes() as own:
+        drift = float((teacher_forced(model, prompt, S, P, dev) - full)
+                      .abs().max())
+    out = {"drift": drift, "forced": None, "flips": 0, "routes": 0,
+           "top": float(full.abs().max())}
+    if full_routes:
+        want = [r[:, :S] for r in full_routes] + [
+            r[:, S + i:S + i + 1] for i in range(TEACHER_STEPS)
+            for r in full_routes]
+        for got, w in zip(own, want):
+            same = (got[:, :w.shape[1]].sort(dim=-1).values
+                    == w.sort(dim=-1).values).all(dim=-1)
+            out["flips"] += int((~same).sum())
+            out["routes"] += same.numel()
+        with moe_routes(want):
+            out["forced"] = float((teacher_forced(model, prompt, S, P, dev)
+                                   - full).abs().max())
+    return out
+
+
+def serve_moe_ssm(args, dev, flush, arch, layers, want_params, want_active):
+    """One engine of path 6: its parameter counts against the reference's
+    and against what the engine holds; the run, every launch count set to
+    0 just before it; the page table against a dict model, the launch
+    counts (one fused GET a decode step, paged attention once per
+    attention layer and step); every served token's logit against a full
+    forward's row maximum; for the mamba models the prefill -> decode
+    handoff in bf16 and, the engine freed, in f32; for olmoe ``moe_dense``
+    against ``moe_ragged``; for the attention models the paged-attention
+    kernel against its plain version at the engine's shapes and live
+    lengths.  Returns (launches, paged-attention shape checks)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine, page_key
+
+    cfg = get_config(arch)
+    if layers:
+        whole = cfg.param_count()
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        print(f"{arch}: cut to {layers} of {get_config(arch).n_layers} "
+              f"layers (one superblock, {cfg.pattern!r}) at full widths: "
+              f"the whole model's {whole} parameters take {2 * whole} B in "
+              f"bf16, more than the card's memory")
+    n_params, n_active = cfg.param_count(), cfg.active_param_count()
+    check(n_params == want_params and n_active == want_active,
+          f"{arch}: {n_params} parameters ({n_active} active) by the port's "
+          f"schema, the reference counts {want_params} ({want_active})")
+    kinds = tf.layer_kinds(cfg)
+    attn_layers = cfg.n_superblocks * sum(k != "M" for k, _ in kinds)
+    P, slots, new = SERVING_PAGE, SERVING_SLOTS, MOE_SSM_NEW_TOKENS
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, batch_size=slots, max_seq=MOE_SSM_MAX_SEQ,
+                        page_size=P, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sc.leaves(eng.model.params)
+    held = sum(t.numel() for t in weights)
+    check(held == n_params, f"{arch}: the engine holds {held} parameters, "
+          f"the schema counts {n_params}")
+    pool_bytes = {k: sum(t.numel() * t.element_size()
+                         for c in eng.pools.values()
+                         for n, t in c.items() if (n in tf.KV_LEAVES) == k)
+                  for k in (True, False)}
+    print(f"{arch}: {cfg.n_layers} layers {cfg.pattern!r}, d {cfg.d_model}, "
+          f"{cfg.n_experts} experts top {cfg.top_k}, {attn_layers} attention "
+          f"layers; {n_params} parameters, {n_active} active a token (the "
+          f"reference's param_count() and active_param_count()), "
+          f"{sum(t.numel() * t.element_size() for t in weights)} B of "
+          f"weights drawn on the card in {init_s:.3f} s; KV pools "
+          f"{eng.kv.n_pages} pages of {P} tokens, {pool_bytes[True]} B; "
+          f"mamba states at {slots} slot rows, {pool_bytes[False]} B")
+
+    rng = np.random.default_rng(args.seed)
+    lo, hi = MOE_SSM_PROMPTS
+    lens = [int(n) for n in rng.integers(lo, hi + 1, MOE_SSM_REQUESTS)]
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in lens]
+    rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+
+    # ---- the main path, every launch count set to 0 just before it -------
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    trace, live = None, []
+    t0 = time.perf_counter()
+    while True:
+        steps = eng.stats["decode_steps"]
+        if steps == MOE_SSM_TRACE_AT:
+            trace = device_events(lambda: eng.run_until_done(max_ticks=3))
+            for rid in rids[:slots]:        # live lengths, pages after it
+                n = lens[rid] + MOE_SSM_TRACE_AT + 3
+                live.append((n, [int.from_bytes(
+                    eng.kv.table.get(page_key(rid, b)), "big")
+                    for b in range(-(-n // P))]))
+        else:
+            eng.run_until_done(max_ticks=1)
+        if eng.stats["decode_steps"] == steps:
+            break
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    outs = eng.run_until_done()
+
+    check(all(len(outs[r]) == new for r in rids),
+          f"{arch}: a request did not return {new} tokens")
+    check(eng.kv.pages_in_use == 1, f"{arch}: {eng.kv.pages_in_use} pages "
+          f"in use after the run, not the scratch page alone")
+    puts, deletes, left = page_table_model(rids, lens, P, new)
+    st = eng.kv.table.stats
+    check(not left and st.puts == puts and st.deletes == deletes,
+          f"{arch}: page table puts/deletes {st.puts}/{st.deletes}, the "
+          f"dict model {puts}/{deletes}")
+    steps = eng.stats["decode_steps"]
+    check(launches["fused_get"] == steps, f"{arch}: {launches['fused_get']} "
+          f"fused GETs for {steps} decode steps")
+    check(launches["paged_attention"] == attn_layers * steps,
+          f"{arch}: {launches['paged_attention']} paged_attention launches "
+          f"for {steps} decode steps of {attn_layers} attention layers")
+    check(all(v == 0 for k, v in launches.items() if k not in
+              ("paged_attention", "fused_get", "row_scatter")),
+          f"{arch}: the serving path launched another kernel: {launches}")
+    prefill_ms = [eng.prefill_s[r] * 1e3 for r in rids]
+    decode_ms = [t * 1e3 for i, t in enumerate(eng.decode_s)
+                 if not MOE_SSM_TRACE_AT <= i < MOE_SSM_TRACE_AT + 3]
+    events, window_us = trace
+    busy_us = sum(t for _, t in events)
+    print(f"  served {len(rids)} requests in {slots} slots, prompts "
+          f"{min(lens)}-{max(lens)} tokens (padded to {P}), {new} new "
+          f"tokens each: {eng.stats['tokens']} tokens, {steps} decode steps "
+          f"in {run_s:.3f} s, {eng.stats['tokens'] / run_s:.1f} tokens/s "
+          f"(host clock)")
+    print(f"  prefill per request (host clock, ms, prompt tokens): "
+          + ", ".join(f"{m:.1f} ({n})" for m, n in zip(prefill_ms, lens)))
+    print(f"  decode step (host clock, block-table GET batch of "
+          f"{slots * eng.pps} keys, {cfg.n_layers} layers, {slots} slots): "
+          f"median {statistics.median(decode_ms):.3f} ms, max "
+          f"{max(decode_ms):.3f} ms over {len(decode_ms)} untraced steps")
+    print(f"  device busy {busy_us / window_us:.4f} of 3 traced decode steps "
+          f"({busy_us:.1f} of {window_us:.1f} us)")
+    print_activities(events, f"{arch} decode steps")
+    print(f"  page table: puts {st.puts}, deletes {st.deletes}, the dict "
+          f"model's; launches {launches}")
+
+    # ---- every served token against a plain full forward -----------------
+    tol = MOE_SSM_TOL[arch]
+    gap, agree, n = served_gap(eng.model, dict(zip(rids, prompts)), outs,
+                               dev)
+    print(f"  served tokens: the full forward's argmax equals {agree} of "
+          f"{n} (floor {tol['agree']:.4f} of them); largest gap between a "
+          f"served token's logit and its row's max {gap:.4f} (tolerance "
+          f"{tol['gap']})")
+    check(gap <= tol["gap"], f"{arch}: a served token's logit lies "
+          f"{gap:.4f} below its row's max in the full forward")
+    check(agree >= tol["agree"] * n, f"{arch}: {agree} of {n} served "
+          f"tokens are the full forward's argmax")
+
+    shapes = []
+    if attn_layers:
+        shapes.append(paged_engine_check(arch, eng, cfg, live, args, dev,
+                                         flush))
+    if arch == MOE_IMPL_ARCH:
+        moe_impl_check(eng, cfg, args, dev)
+    rid = int(np.argmax(lens))
+    mamba = any(k == "M" for k, _ in kinds)
+    if mamba:
+        h = handoff_drift(eng.model, prompts[rid], P, dev)
+        held = h["drift"] if h["forced"] is None else h["forced"]
+        diff = f"{h['drift']:.4f} (tolerance {tol['handoff']})" \
+            if h["forced"] is None else (
+                f"with its own routes {h['drift']:.4f} (tolerance "
+                f"{MOE_OWN_ROUTES_TOL}; {h['flips']} of {h['routes']} (MoE "
+                f"layer, position) routes flipped against the full "
+                f"forward's), with every route forced to the full forward's "
+                f"{h['forced']:.4f} (tolerance {tol['handoff']})")
+        print(f"  handoff, request {rid} ({lens[rid]} prompt tokens), bf16: "
+              f"prefill of all but {TEACHER_STEPS} tokens + {TEACHER_STEPS} "
+              f"teacher-forced decode steps vs the full forward's logits "
+              f"(|logit| up to {h['top']:.2f}): max abs diff {diff}")
+        check(held <= tol["handoff"], f"{arch}: handoff logits differ from "
+              f"the full forward by {held:.4f}")
+        check(h["drift"] <= MOE_OWN_ROUTES_TOL, f"{arch}: handoff logits "
+              f"with its own routes differ from the full forward by "
+              f"{h['drift']:.4f}")
+    del eng, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mamba:       # the same handoff with f32 weights, the engine freed
+        schema32 = sc.map_tree(lambda d: dataclasses.replace(
+            d, dtype=torch.float32), tf.schema(cfg))
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        model = tf.Transformer(cfg, sc.init(schema32, gen, dev))
+        h = handoff_drift(model, prompts[rid], P, dev)
+        print(f"  handoff, request {rid}, f32 weights drawn on the card: "
+              f"max abs diff {h['drift']:.6f} (|logit| up to "
+              f"{h['top']:.2f}; tolerance {F32_TOL}; "
+              f"{h['flips']} of {h['routes']} routes flipped)")
+        check(h["drift"] <= F32_TOL, f"{arch}: f32 handoff logits "
+              f"differ from the full forward by {h['drift']:.6f}")
+        if not attn_layers:     # the slot rows through an f32 engine
+            eng = ServingEngine(cfg, model.params, batch_size=slots,
+                                max_seq=MOE_SSM_MAX_SEQ, page_size=P,
+                                device=dev)
+            rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+            outs = eng.run_until_done()
+            gap, agree, n = served_gap(eng.model, dict(zip(rids, prompts)),
+                                       outs, dev)
+            print(f"  served tokens of the same prompts through an engine "
+                  f"with these f32 weights: the full forward's argmax "
+                  f"equals {agree} of {n}; largest gap between a served "
+                  f"token's logit and its row's max {gap:.6f} (tolerance "
+                  f"{F32_TOL})")
+            check(gap <= F32_TOL, f"{arch}: an f32 engine's served token "
+                  f"lies {gap:.6f} below its row's max")
+            del eng
+        del model
+    return launches, shapes
+
+
+def moe_impl_check(eng, cfg, args, dev) -> None:
+    """``moe_dense`` against ``moe_ragged`` on the engine's first MoE
+    layer, its weights cast to f32, on a decode batch (one token a slot)
+    and on a prefill of MOE_PREFILL_TOKENS tokens of seeded normal inputs
+    (an RMS-normed hidden state's scale); both timed by CUDA events.
+    First, the peak allocation of one bf16 ``moe_dense`` decode call on
+    the layer's own weights must stay under one expert weight tensor's
+    bytes: the products read the weights where they lie."""
+    from repro_torch.models import moe as me
+    from repro_torch.models import transformer as tf
+    j = next(i for i, (_, f) in enumerate(tf.layer_kinds(cfg)) if f == "moe")
+    ffn = eng.model.params["blocks"][f"l{j}"]["ffn"]
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    p16 = {k: t[0] for k, t in ffn.items()}
+    x = torch.randn(SERVING_SLOTS, 1, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    me.moe_dense(p16, x, cfg)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    weight = p16["w_gate"].numel() * p16["w_gate"].element_size()
+    print(f"  moe_dense, layer l{j} in bf16, decode {SERVING_SLOTS} tokens: "
+          f"peak allocation {rise} B above its inputs, one expert weight "
+          f"tensor {list(p16['w_gate'].shape)} {weight} B")
+    check(rise < weight, f"moe_dense allocates {rise} B a decode call, as "
+          f"much as a copy of its {weight} B expert weights")
+    p = {k: t[0].float() for k, t in ffn.items()}
+    for name, shape in (("decode", (SERVING_SLOTS, 1)),
+                        ("prefill", (1, MOE_PREFILL_TOKENS))):
+        x = torch.randn(*shape, cfg.d_model, generator=gen, device=dev)
+        dense, ragged = me.moe_dense(p, x, cfg), me.moe_ragged(p, x, cfg)
+        err = float((dense - ragged).abs().max())
+        try:
+            torch.testing.assert_close(ragged, dense, **MOE_IMPL_TOL)
+        except AssertionError as exc:
+            raise SmokeFailure(f"moe_ragged vs moe_dense ({name}): {exc}")
+        reps = 20 if name == "decode" else 5
+        dense_ms = cuda_ms([lambda: me.moe_dense(p, x, cfg)], reps)
+        ragged_ms = cuda_ms([lambda: me.moe_ragged(p, x, cfg)], reps)
+        print(f"  moe_dense vs moe_ragged, layer l{j} in f32, {name} "
+              f"{list(shape)} tokens: max abs diff {err:.3g} (tolerance "
+              f"rtol {MOE_IMPL_TOL['rtol']}, atol {MOE_IMPL_TOL['atol']}; "
+              f"|out| up to {float(dense.abs().max()):.3f}); dense "
+              f"{dense_ms:.4f} ms, ragged {ragged_ms:.4f} ms a call (CUDA "
+              f"events, back to back; the ragged one reads its group "
+              f"sizes back)")
+        del x, dense, ragged
+
+
+def paged_engine_check(arch, eng, cfg, live, args, dev, flush) -> dict:
+    """The paged-attention kernel against its plain version on the
+    engine's first attention layer's live pool, at the engine's shapes
+    and the live lengths after the traced steps, in bf16 and f32 with the
+    serving check's tolerances; its device time (L2 flushed), time per
+    call through the wrapper, the plain version's time, SDPA over the
+    gathered K/V (a partial yardstick) and the byte bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention, ref
+    from repro_torch.models import transformer as tf
+    j = next(i for i, (k, _) in enumerate(tf.layer_kinds(cfg)) if k != "M")
+    slots, P = SERVING_SLOTS, SERVING_PAGE
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kp = eng.pools[f"l{j}"]["k_pages"][0]
+    vp = eng.pools[f"l{j}"]["v_pages"][0]
+    bt = torch.zeros(slots, eng.pps, dtype=torch.int32)
+    for i, (_, pages) in enumerate(live):
+        bt[i, :len(pages)] = torch.tensor(pages)
+    bt = bt.to(dev)
+    sl = torch.tensor([n for n, _ in live], dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    q = torch.randn(slots, H, D, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    scale = D ** -0.5
+    err = 0.0
+    for dtype, tol in ((torch.bfloat16, dict(rtol=2 ** -7, atol=1e-6)),
+                       (torch.float32, dict(rtol=1e-5, atol=1e-5))):
+        a = (q.to(dtype), kp.to(dtype), vp.to(dtype), bt, sl)
+        got = paged_attention.paged_attention(*a, scale=scale)
+        want = ref.paged_attention_ref(*a, scale=scale)
+        try:
+            torch.testing.assert_close(got, want, **tol)
+        except AssertionError as exc:
+            raise SmokeFailure(f"paged_attention at the {arch} engine's "
+                               f"shape ({dtype}) vs plain: {exc}")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        del a, got, want
+    call = [lambda: paged_attention.paged_attention(q, kp, vp, bt, sl,
+                                                    scale=scale)]
+    ms = device_ms(call, 64, "paged_attention_kernel", flush, per_call=2)
+    wrapper_ms = cuda_ms(call, 200)
+    plain_ms = cuda_ms([lambda: ref.paged_attention_ref(q, kp, vp, bt, sl,
+                                                        scale=scale)], 16)
+    kd = kp[bt.long()].reshape(slots, -1, KVH, D).transpose(1, 2) \
+        .contiguous()
+    vd = vp[bt.long()].reshape(slots, -1, KVH, D).transpose(1, 2) \
+        .contiguous()
+    mask = (torch.arange(kd.shape[2], device=dev)[None, :]
+            < sl[:, None])[:, None, None, :]
+    library_ms = device_all_ms([lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=mask, scale=scale,
+        enable_gqa=True)], 64, flush)
+    live_pos = int(sl.sum())
+    io = live_pos * KVH * D * 2 * kp.element_size() \
+        + 2 * q.numel() * q.element_size() \
+        + 4 * (sum(len(pages) for _, pages in live) + 2 * slots)
+    ops_ = 4 * H * D * live_pos
+    bytes_ms = io / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_ / BF16_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    plan = paged_attention.span_plan(slots, H, KVH, eng.pps, P, D, kp.dtype)
+    print(f"  paged_attention at the {arch} engine's shape (B = {slots}, H "
+          f"= {H}, KVH = {KVH}, G = {H // KVH}, D = {D}, P = {P}, PPS = "
+          f"{eng.pps}, bf16, live lengths {sl.tolist()}): equals its plain "
+          f"version in bf16 and f32 (max abs err {err:.3g}); plan "
+          f"{plan._asdict()}; kernel {ms:.4f} ms device time (L2 flushed), "
+          f"{wrapper_ms:.4f} ms per call through the wrapper, plain "
+          f"{plain_ms:.4f} ms, SDPA over the gathered K/V {library_ms:.4f} "
+          f"ms device time; bound {bound_ms:.6f} ms ({io} B; {ops_} flops "
+          f"take {ops_ms:.6f} ms)")
+    return {"name": f"{arch} engine", "G": H // KVH, "ms": ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "max_abs_err": err}
 
 

@@ -1,27 +1,35 @@
-"""Architecture registry (port of ``repro.configs``), limited to the
-configurations the port carries: the dense attention stacks.  The other
-architectures of the reference wait for their layers (ROADMAP A11)."""
+"""Architecture registry (port of ``repro.configs``): the reference's
+configurations but the two that need encoders or embedding inputs
+(pixtral-12b, seamless-m4t-medium: ROADMAP A, item 4)."""
 from __future__ import annotations
 
 import importlib
 
 from ..models.config import ArchConfig
 
-ARCH_IDS = ["stablelm_3b", "gemma2_27b", "qwen2p5_3b"]
+ARCH_IDS = [
+    "mamba2_1p3b", "mixtral_8x22b", "olmoe_1b_7b", "stablelm_3b",
+    "gemma2_27b", "gemma3_12b", "qwen2p5_3b", "jamba_v0p1_52b",
+]
 
 # canonical ids as assigned (hyphens/dots) -> module names
 ALIASES = {
+    "mamba2-1.3b": "mamba2_1p3b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "stablelm-3b": "stablelm_3b",
     "gemma2-27b": "gemma2_27b",
+    "gemma3-12b": "gemma3_12b",
     "qwen2.5-3b": "qwen2p5_3b",
+    "jamba-v0.1-52b": "jamba_v0p1_52b",
 }
 
 
 def _module(arch: str):
     mod = ALIASES.get(arch, arch).replace("-", "_").replace(".", "p")
     if mod not in ARCH_IDS:
-        raise KeyError(f"{arch}: the port carries only {ARCH_IDS}; the other "
-                       f"architectures wait for their layers (ROADMAP A11)")
+        raise KeyError(f"{arch}: the port carries only {ARCH_IDS}; encoders "
+                       f"and embedding inputs wait for ROADMAP A, item 4")
     return importlib.import_module(f"{__name__}.{mod}")
 
 

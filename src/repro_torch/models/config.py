@@ -1,10 +1,10 @@
 """Architecture configuration (port of ``repro.models.config``).
 
 The same frozen dataclass as the reference, field for field, and its
-decode/prefill shape table.  The port builds only the dense attention
-stacks (layer kinds ``G``/``L`` with an MLP): ``param_count`` goes through
-the port's own schema (``models/transformer.py``), which raises for the
-kinds it does not carry (ROADMAP A11).
+decode/prefill shape table.  ``param_count`` and ``active_param_count``
+go through the port's own schema (``models/transformer.py``), which
+raises for encoder-decoder models and embedding inputs (not ported:
+ROADMAP A, item 4).
 """
 from __future__ import annotations
 
@@ -57,6 +57,14 @@ class ArchConfig:
     notes: str = ""
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
 
@@ -72,6 +80,15 @@ class ArchConfig:
         from . import transformer
         from .schema import n_params
         return n_params(transformer.schema(self))
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top_k of n_experts)."""
+        total = self.param_count()
+        if not self.n_experts:
+            return total
+        from . import transformer
+        moe = transformer.moe_param_count(self)
+        return total - moe + int(moe * self.top_k / self.n_experts)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,7 +7,7 @@ by step: scores, softmax, RoPE and norms in f32, probabilities cast to
 V's type before the product, results cast back to the input's type.  The
 large products stay ``torch.matmul``, as the reference leaves them to
 XLA.  Not ported: ``cross_attention`` (encoder-decoder models, ROADMAP
-A11).
+A, item 4).
 """
 from __future__ import annotations
 

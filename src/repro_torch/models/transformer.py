@@ -1,17 +1,20 @@
-"""Model assembly (port of ``repro.models.transformer``) for the dense
-attention stacks: layer kinds ``G`` (global attention) and ``L``
-(sliding-window attention), each with a gated-MLP FFN.
+"""Model assembly (port of ``repro.models.transformer``): layer kinds
+``G`` (global attention), ``L`` (sliding-window attention) and ``M``
+(the Mamba2 mixer), each followed by a gated MLP, the MoE FFN (every
+cfg.moe_every-th layer of an MoE model) or nothing (mamba2's pure-mixer
+blocks, d_ff == 0).
 
 Depth is organised as in the reference: the layer pattern (cfg.pattern)
-is one superblock, and every parameter and KV pool keeps the reference's
+is one superblock, and every parameter and cache keeps the reference's
 leading superblock dimension, so the reference's parameter tree converts
 leaf for leaf (``schema.from_numpy``).  The reference scans over
 superblocks; the port loops over them eagerly.
 
 Decode is paged: each attention layer has a KV page pool indexed by block
-tables that come from Honeycomb GETs (``serving/kv_cache.py``).  Not
-ported (ROADMAP A11): mamba layers (``M``), the MoE FFN and
-encoder-decoder models; their schemas raise.
+tables that come from Honeycomb GETs (``serving/kv_cache.py``); each
+mamba layer has its recurrent state and conv tail at the request's slot
+row.  Not ported (ROADMAP A, item 4): encoder-decoder models and
+embedding inputs; their schemas raise.
 """
 from __future__ import annotations
 
@@ -21,10 +24,13 @@ import torch
 from torch import nn
 
 from . import layers as ll
+from . import mamba2 as mm
+from . import moe as me
 from .config import ArchConfig
-from .schema import ParamDef, map_tree, stack
+from .schema import ParamDef, map_tree, n_params, stack
 
 F32 = torch.float32
+KV_LEAVES = ("k_pages", "v_pages")
 
 
 # ---------------------------------------------------------------- structure
@@ -44,33 +50,28 @@ def layer_kinds(cfg: ArchConfig) -> list[tuple[str, str | None]]:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    for kind, ffn in layer_kinds(cfg):
-        if kind not in ("G", "L"):
-            raise NotImplementedError(
-                f"{cfg.arch_id}: layer kind {kind!r} is not ported "
-                f"(ROADMAP A11)")
-        if ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.arch_id}: the MoE FFN is not ported (ROADMAP A11)")
     if cfg.n_enc_layers or cfg.embeds_in:
         raise NotImplementedError(
             f"{cfg.arch_id}: encoders and embedding inputs are not ported "
-            f"(ROADMAP A11)")
+            f"(ROADMAP A, item 4)")
 
 
-def _layer_schema(cfg: ArchConfig, ffn: str | None):
-    s: dict[str, Any] = {"ln1": ll.rmsnorm_schema(cfg.d_model),
-                         "attn": ll.attention_schema(cfg)}
+def _layer_schema(cfg: ArchConfig, kind: str, ffn: str | None):
+    s: dict[str, Any] = {"ln1": ll.rmsnorm_schema(cfg.d_model)}
+    if kind == "M":
+        s["mamba"] = mm.mamba_schema(cfg)
+    else:
+        s["attn"] = ll.attention_schema(cfg)
     if ffn is not None:
         s["ln2"] = ll.rmsnorm_schema(cfg.d_model)
-        s["ffn"] = ll.mlp_schema(cfg)
+        s["ffn"] = me.moe_schema(cfg) if ffn == "moe" else ll.mlp_schema(cfg)
     return s
 
 
 def superblock_schema(cfg: ArchConfig):
     _check_ported(cfg)
-    return {f"l{i}": _layer_schema(cfg, ffn)
-            for i, (_, ffn) in enumerate(layer_kinds(cfg))}
+    return {f"l{i}": _layer_schema(cfg, kind, ffn)
+            for i, (kind, ffn) in enumerate(layer_kinds(cfg))}
 
 
 def schema(cfg: ArchConfig):
@@ -83,20 +84,43 @@ def schema(cfg: ArchConfig):
     }
 
 
+def moe_param_count(cfg: ArchConfig) -> int:
+    """Expert parameters of the whole model (the routers excluded)."""
+    if not cfg.n_experts:
+        return 0
+    per_layer = n_params(me.moe_schema(cfg)) - cfg.d_model * cfg.n_experts
+    n_moe_layers = sum(1 for _, f in layer_kinds(cfg)
+                       if f == "moe") * cfg.n_superblocks
+    return per_layer * n_moe_layers
+
+
 def _at(tree, i: int):
     """Superblock ``i`` of a stacked tree (views)."""
     return map_tree(lambda t: t[i], tree)
 
 
 # ----------------------------------------------------------------- forward
-def _layer(p, x, cfg: ArchConfig, kind: str, ffn: str | None):
-    """One layer over a whole sequence: (x, (k, v))."""
+def _ffn(p, x, cfg: ArchConfig, ffn: str | None, moe_impl="dense"):
+    if ffn is None:
+        return x
+    h = ll.rmsnorm(p["ln2"], x)
+    f = me.moe(p["ffn"], h, cfg, impl=moe_impl) if ffn == "moe" \
+        else ll.mlp(p["ffn"], h)
+    return x + f
+
+
+def _layer(p, x, cfg: ArchConfig, kind: str, ffn: str | None,
+           moe_impl="dense", last_pos=None):
+    """One layer over a whole sequence: (x, cache), the cache (k, v) of an
+    attention layer or the ``MambaState`` after ``last_pos`` [B] (the last
+    position when None) of a mamba layer."""
     h = ll.rmsnorm(p["ln1"], x)
-    a, kv = ll.attention(p["attn"], h, cfg, local=(kind == "L"))
-    x = x + a
-    if ffn is not None:
-        x = x + ll.mlp(p["ffn"], ll.rmsnorm(p["ln2"], x))
-    return x, kv
+    if kind == "M":
+        y, cache = mm.mamba_block(p["mamba"], h, cfg, return_state=True,
+                                  last_pos=last_pos)
+    else:
+        y, cache = ll.attention(p["attn"], h, cfg, local=(kind == "L"))
+    return _ffn(p, x + y, cfg, ffn, moe_impl), cache
 
 
 def _logits(params, cfg: ArchConfig, x):
@@ -107,31 +131,32 @@ def _logits(params, cfg: ArchConfig, x):
     return logits
 
 
-def forward(params, cfg: ArchConfig, tokens):
+def forward(params, cfg: ArchConfig, tokens, moe_impl: str = "dense"):
     """Full forward over ``tokens`` [B, S] -> logits [B, S, V] (f32)."""
     x = params["embed"][tokens.long()]
     kinds = layer_kinds(cfg)
     for i in range(cfg.n_superblocks):
         blk = _at(params["blocks"], i)
         for j, (kind, ffn) in enumerate(kinds):
-            x, _ = _layer(blk[f"l{j}"], x, cfg, kind, ffn)
+            x, _ = _layer(blk[f"l{j}"], x, cfg, kind, ffn, moe_impl)
     return _logits(params, cfg, x)
 
 
 class DecodeCache(NamedTuple):
-    """Stacked per-superblock KV pools + shared block tables."""
-    layers: Any          # {"l<i>": {"k_pages", "v_pages"}}, [n_sb, NP, ...]
+    """Stacked per-superblock caches + shared block tables."""
+    layers: Any          # {"l<i>": {"k_pages", "v_pages"} | {"ssm", "conv"}}
     block_tables: Any    # i32 [B, PPS] — Honeycomb page-table lookups
     seq_lens: Any        # i32 [B]
 
 
 def prefill(params, cfg: ArchConfig, tokens, page_size: int = 256,
-            last_pos=None):
-    """Forward over the prompt, returning last-token logits and the KV
-    pages (identity block tables).
+            last_pos=None, moe_impl: str = "dense"):
+    """Forward over the prompt, returning last-token logits and the
+    decode caches: KV pages (identity block tables) and mamba states.
 
     ``last_pos`` ([B] or scalar) selects which position's logits to
-    return (page-padded prompts: the real last token, not the pad tail).
+    return (page-padded prompts: the real last token, not the pad tail),
+    and the position after which each mamba state is taken.
     Returns (logits [B, V], DecodeCache)."""
     x = params["embed"][tokens.long()]
     B, S, _ = x.shape
@@ -140,22 +165,28 @@ def prefill(params, cfg: ArchConfig, tokens, page_size: int = 256,
                          f"size {page_size}")
     pps = S // page_size
     kv_shape = (B * pps, page_size, cfg.n_kv_heads, cfg.head_dim)
+    idx = None if last_pos is None else \
+        torch.as_tensor(last_pos, device=x.device).long().expand(B)
     kinds = layer_kinds(cfg)
-    pools = {f"l{j}": {"k_pages": [], "v_pages": []}
-             for j in range(len(kinds))}
+    caches: dict[str, dict[str, list]] = {f"l{j}": {}
+                                          for j in range(len(kinds))}
     for i in range(cfg.n_superblocks):
         blk = _at(params["blocks"], i)
         for j, (kind, ffn) in enumerate(kinds):
-            x, (k, v) = _layer(blk[f"l{j}"], x, cfg, kind, ffn)
-            pools[f"l{j}"]["k_pages"].append(k.reshape(kv_shape))
-            pools[f"l{j}"]["v_pages"].append(v.reshape(kv_shape))
+            x, c = _layer(blk[f"l{j}"], x, cfg, kind, ffn, moe_impl, idx)
+            if kind == "M":
+                new = {"ssm": c.ssm, "conv": c.conv}
+            else:
+                new = {"k_pages": c[0].reshape(kv_shape),
+                       "v_pages": c[1].reshape(kv_shape)}
+            for n, t in new.items():
+                caches[f"l{j}"].setdefault(n, []).append(t)
     layers = {name: {n: torch.stack(ts) for n, ts in c.items()}
-              for name, c in pools.items()}
-    if last_pos is None:
+              for name, c in caches.items()}
+    if idx is None:
         xl = x[:, -1:]
     else:
-        idx = torch.as_tensor(last_pos, device=x.device).long()
-        xl = x[torch.arange(B, device=x.device), idx.expand(B)][:, None]
+        xl = x[torch.arange(B, device=x.device), idx][:, None]
     logits = _logits(params, cfg, xl)
     block_tables = torch.arange(B * pps, dtype=torch.int32,
                                 device=x.device).reshape(B, pps)
@@ -166,20 +197,33 @@ def prefill(params, cfg: ArchConfig, tokens, page_size: int = 256,
 # ------------------------------------------------------------------ decode
 def layer_cache_schema(cfg: ArchConfig, batch: int, pages_per_seq: int,
                        page_size: int):
-    """ParamDef tree for one superblock's KV pools (stacked by the
-    caller)."""
+    """ParamDef tree for one superblock's caches (stacked by the caller):
+    KV page pools of ``batch * pages_per_seq`` pages for attention layers,
+    a state and a conv tail per batch row for mamba layers."""
     _check_ported(cfg)
     n_pages = batch * pages_per_seq
-    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {f"l{i}": {"k_pages": ParamDef(shape), "v_pages": ParamDef(shape)}
-            for i in range(len(cfg.pattern))}
+    kv = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    out = {}
+    for i, (kind, _) in enumerate(layer_kinds(cfg)):
+        if kind == "M":
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+            out[f"l{i}"] = {
+                "ssm": ParamDef((batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                                 cfg.ssm_state), F32, "zeros"),
+                "conv": ParamDef((batch, cfg.conv_width - 1, conv_dim), F32,
+                                 "zeros"),
+            }
+        else:
+            out[f"l{i}"] = {"k_pages": ParamDef(kv), "v_pages": ParamDef(kv)}
+    return out
 
 
 def decode_step(params, cfg: ArchConfig, cache: DecodeCache, tokens,
                 page_size: int, attn=None):
     """One decode token for the whole batch: tokens [B, 1] int.  The pools
-    of ``cache.layers`` are updated in place.  ``attn`` is the paged
-    attention (``kernels/ops.paged_attention`` when None).
+    and mamba states of ``cache.layers`` are updated in place.  ``attn``
+    is the paged attention (``kernels/ops.paged_attention`` when None).
+    The MoE FFN is the dense one, as in the reference.
     Returns (logits [B, V], DecodeCache with seq_lens + 1)."""
     x = params["embed"][tokens.long()]
     bt, lens = cache.block_tables, cache.seq_lens
@@ -189,13 +233,17 @@ def decode_step(params, cfg: ArchConfig, cache: DecodeCache, tokens,
         pools = _at(cache.layers, i)
         for j, (kind, ffn) in enumerate(kinds):
             p, c = blk[f"l{j}"], pools[f"l{j}"]
-            y, _ = ll.decode_attention(
-                p["attn"], ll.rmsnorm(p["ln1"], x), cfg, c["k_pages"],
-                c["v_pages"], bt, lens, local=(kind == "L"),
-                page_size=page_size, attn=attn)
-            x = x + y
-            if ffn is not None:
-                x = x + ll.mlp(p["ffn"], ll.rmsnorm(p["ln2"], x))
+            h = ll.rmsnorm(p["ln1"], x)
+            if kind == "M":
+                y, st = mm.mamba_decode(
+                    p["mamba"], h, mm.MambaState(c["ssm"], c["conv"]), cfg)
+                c["ssm"].copy_(st.ssm)
+                c["conv"].copy_(st.conv)    # the tail in x's dtype, widened
+            else:
+                y, _ = ll.decode_attention(
+                    p["attn"], h, cfg, c["k_pages"], c["v_pages"], bt, lens,
+                    local=(kind == "L"), page_size=page_size, attn=attn)
+            x = _ffn(p, x + y, cfg, ffn)
     return _logits(params, cfg, x)[:, 0], DecodeCache(cache.layers, bt,
                                                       lens + 1)
 
@@ -234,12 +282,14 @@ class Transformer(nn.Module):
         return self.params_tree.tree()
 
     @torch.inference_mode()
-    def forward(self, tokens):
-        return forward(self.params, self.cfg, tokens)
+    def forward(self, tokens, moe_impl: str = "dense"):
+        return forward(self.params, self.cfg, tokens, moe_impl)
 
     @torch.inference_mode()
-    def prefill(self, tokens, page_size: int, last_pos=None):
-        return prefill(self.params, self.cfg, tokens, page_size, last_pos)
+    def prefill(self, tokens, page_size: int, last_pos=None,
+                moe_impl: str = "dense"):
+        return prefill(self.params, self.cfg, tokens, page_size, last_pos,
+                       moe_impl)
 
     @torch.inference_mode()
     def decode_step(self, cache: DecodeCache, tokens, page_size: int,

@@ -8,10 +8,14 @@ decode step (paged attention: the hand-written kernel on CUDA) ->
 in-order token delivery.  Page allocation and completion-time frees are
 host-side Honeycomb writes — the paper's read/write split, transplanted.
 
-Every active request owns a fixed batch *slot*; its attention state lives
-in pages (slot-independent, indexed through the Honeycomb table).  Page 0
-is reserved scratch: idle slots' block tables point at it, so their
-(ignored) decode lanes never touch a live page.
+Every active request owns a fixed batch *slot*: its attention state lives
+in pages (slot-independent, indexed through the Honeycomb table), its
+mamba layers' recurrent state and conv tail at the slot's row, which the
+next request's prefill in that slot overwrites.  A model without
+attention layers (mamba2) still allocates and looks up its pages, as
+the reference's engine does.  Page 0 is reserved scratch: idle slots'
+block tables point at it, so their (ignored) decode lanes never touch a
+live page.
 
 The model and KV pools live on ``device`` (``"cuda"`` unless the caller
 passes ``"cpu"``, which runs every kernel's plain version).
@@ -72,11 +76,15 @@ class ServingEngine:
         cache_tree = sc.stack(
             cfg.n_superblocks,
             tf.layer_cache_schema(cfg, batch_size, self.pps, page_size))
-        # pool rows = physical pages: [n_superblocks, n_pages, P, KVH, HD]
-        self.pools = sc.map_tree(
-            lambda d: torch.zeros((d.shape[0], n_pages, *d.shape[2:]),
-                                  dtype=d.dtype, device=self.device),
-            cache_tree)
+        # KV pool rows = physical pages: [n_superblocks, n_pages, P, KVH,
+        # HD]; mamba states keep the schema's slot rows [n_superblocks,
+        # batch, ...]
+        self.pools = {
+            name: {kind: torch.zeros(
+                (d.shape[0], n_pages, *d.shape[2:]) if kind in tf.KV_LEAVES
+                else d.shape, dtype=d.dtype, device=self.device)
+                for kind, d in leaves.items()}
+            for name, leaves in cache_tree.items()}
         self._slots: list[int | None] = [None] * batch_size
         self._requests: dict[int, Request] = {}
         self._next_rid = 0
@@ -109,9 +117,11 @@ class ServingEngine:
         idx = torch.tensor(pages, device=self.device)
         for name, pools in self.pools.items():
             for kind, pool in pools.items():
-                # KV pages -> the allocated physical page slots
-                pool[:, idx] = cache.layers[name][kind][:, :n_blocks] \
-                    .to(pool.dtype)
+                new = cache.layers[name][kind]
+                if kind in tf.KV_LEAVES:   # -> the allocated page slots
+                    pool[:, idx] = new[:, :n_blocks].to(pool.dtype)
+                else:                      # mamba state -> the slot row
+                    pool[:, slot] = new[:, 0].to(pool.dtype)
         r.seq_len = S
         r.slot = slot
         self._slots[slot] = r.rid

@@ -1218,6 +1218,61 @@ def test_serving_engine_on_cuda_matches_cpu(cuda, arch):
     torch.testing.assert_close(logits[1], logits[0], rtol=5e-2, atol=5e-2)
 
 
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "mamba2_1p3b",
+                                  "jamba_v0p1_52b"])
+def test_moe_ssm_engine_on_cuda_matches_cpu(cuda, arch):
+    """The MoE, SSM and hybrid smoke engines on the card against the same
+    engines on the CPU, parameters in f32: greedy tokens, stats and page
+    tables agree, slots reused (5 requests in 2 slots); paged attention
+    launches once per attention layer and decode step (none for mamba2),
+    the fused GET once a step.  Then the decode logits of a prefilled
+    batch, caches and states in f32, agree to 1e-3 (the devices sum in
+    other orders; a smoke router's near tie would flip a whole expert,
+    so bf16 is not compared)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+    cfg = get_smoke_config(arch)
+    params = sc.map_tree(lambda t: t.float(), sc.init(
+        tf.schema(cfg), torch.Generator().manual_seed(0), "cpu"))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab, (int(n),))
+               for n in rng.integers(5, 45, 5)]
+    outs, engines = [], []
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(cfg, params, batch_size=2, max_seq=128,
+                            page_size=16, device=dev)
+        rids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        build.reset_launches()
+        got = eng.run_until_done()
+        outs.append([got[r] for r in rids])
+        engines.append(eng)
+    assert outs[0] == outs[1]
+    assert engines[0].stats == engines[1].stats
+    steps = engines[1].stats["decode_steps"]
+    attn_layers = cfg.n_superblocks * sum(
+        kind != "M" for kind, _ in tf.layer_kinds(cfg))
+    assert build.LAUNCHES["paged_attention"] == attn_layers * steps
+    assert build.LAUNCHES["fused_get"] == steps
+
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 48)))
+    logits = []
+    for dev in ("cpu", cuda):
+        p = sc.map_tree(lambda t: t.to(dev), params)
+        _, cache = tf.prefill(p, cfg, toks.to(dev), 16,
+                              torch.tensor([27, 31], device=dev))
+        cache = cache._replace(seq_lens=torch.tensor(
+            [28, 32], dtype=torch.int32, device=dev))
+        step = []
+        for i in range(3):
+            lg, cache = tf.decode_step(p, cfg, cache,
+                                       toks[:, i:i + 1].to(dev), 16)
+            step.append(lg.float().cpu())
+        logits.append(torch.stack(step))
+    torch.testing.assert_close(logits[1], logits[0], rtol=1e-3, atol=1e-3)
+
+
 # ------------------------------------------------------------ the analysis
 #: device -> host read-backs a dispatch makes on the card, pinned: the row
 #: and multi-field scatters read the rows' bounds back (``ref.check_rows``),

@@ -1,8 +1,10 @@
-"""The port's dense transformer held to the JAX reference: layers, the
-full forward, prefill and paged decode, on the reference's own parameters
-carried over by ``schema.from_numpy`` at the qwen2.5 and gemma2 smoke
-configs (gemma2: local/global layers, a sliding window and both
-softcaps), and the parameter schemas at full size.
+"""The port's models held to the JAX reference: layers, the full
+forward, prefill and paged decode, on the reference's own parameters
+carried over by ``schema.from_numpy`` at the smoke configs of the dense
+stacks (qwen2.5; gemma2: local/global layers, a sliding window and both
+softcaps; gemma3: five local layers to one global; stablelm: MHA), the
+MoE models (olmoe, mixtral), mamba2 and the hybrid jamba, and the
+parameter schemas and counts at full size.
 
 Tolerances: with the parameters cast to f32, 1e-5 on single layers and
 1e-4 on whole-model logits (the two frameworks sum in other orders, f32
@@ -10,6 +12,8 @@ keeps ~7 digits); with the bf16 parameters as drawn, 5e-2 on logits of
 magnitude ~1 (bf16 keeps 8 mantissa bits, and the frameworks round the
 activations at other steps).  Inputs are made from a seed with numpy."""
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +29,7 @@ from repro.models import schema as jsc
 from repro.models import transformer as jtf
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import layers as tll
+from repro_torch.models.config import ArchConfig
 from repro_torch.models import schema as tsc
 from repro_torch.models import transformer as ttf
 
@@ -69,23 +74,33 @@ def test_schema_and_param_count_match_reference(arch):
         assert jflat[k].shape == tflat[k].shape, k
         assert np.dtype(jflat[k].dtype).name == \
             str(tflat[k].dtype).removeprefix("torch."), k
+        assert jflat[k].init == tflat[k].init, k
     assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.active_param_count() == jcfg.active_param_count()
+    assert ttf.moe_param_count(tcfg) == jtf.moe_param_count(jcfg)
+    assert (tcfg.d_inner, tcfg.n_ssm_heads) == (jcfg.d_inner,
+                                                jcfg.n_ssm_heads)
     assert get_smoke_config(arch).param_count() == \
         jget_smoke(arch).param_count()
+    assert get_smoke_config(arch).active_param_count() == \
+        jget_smoke(arch).active_param_count()
 
 
 def test_unported_configs_raise():
-    with pytest.raises(KeyError, match="ROADMAP A11"):
-        get_config("mixtral-8x22b")
-    moe = get_smoke_config("qwen2p5_3b").__class__(
-        arch_id="moe", family="moe", n_layers=2, d_model=64, n_heads=4,
-        n_kv_heads=2, head_dim=16, d_ff=128, vocab=256, n_experts=4,
-        top_k=2)
-    for cfg in (moe, get_smoke_config("gemma2_27b").__class__(
-            arch_id="ssm", family="ssm", n_layers=2, d_model=64, n_heads=0,
-            n_kv_heads=1, head_dim=0, d_ff=0, vocab=256, pattern="M")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    """Encoders and embedding inputs wait for ROADMAP A, item 4: the two
+    configs that need them are not carried, and a config with either is
+    refused by the schema and the model."""
+    for arch in ("pixtral-12b", "seamless_m4t_medium"):
+        with pytest.raises(KeyError, match="ROADMAP A, item 4"):
+            get_config(arch)
+    # the reference's own smoke configs of the two, as the port's type
+    for arch in ("seamless_m4t_medium", "pixtral_12b"):
+        cfg = ArchConfig(**dataclasses.asdict(jget_smoke(arch)))
+        assert cfg.n_enc_layers or cfg.embeds_in
+        with pytest.raises(NotImplementedError, match="ROADMAP A, item 4"):
             ttf.schema(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP A, item 4"):
+            ttf.Transformer(cfg, {})
 
 
 def test_from_numpy_carries_bf16_leaf_for_leaf():
@@ -164,9 +179,68 @@ def test_attention_long_prompt_must_fill_its_query_chunks():
                       q_chunk=16)
 
 
-@pytest.mark.parametrize("arch,dtype", [("qwen2p5_3b", np.float32),
-                                        ("gemma2_27b", np.float32),
-                                        ("qwen2p5_3b", None)])
+# every carried family in f32; bf16 on the dense stacks only.  At the
+# smoke widths, rounding silu in the reference's steps (sigmoid, then the
+# product) in place of one step moves the port's own bf16 mamba2 and
+# jamba logits beyond BF16_TOL: their layers are held in bf16 instead
+# (tests/test_torch_mamba2.py, tests/test_torch_moe.py).
+F32_ARCHS = [("qwen2p5_3b", np.float32), ("gemma2_27b", np.float32),
+             ("gemma3_12b", np.float32), ("stablelm_3b", np.float32),
+             ("olmoe_1b_7b", np.float32), ("mixtral_8x22b", np.float32),
+             ("mamba2_1p3b", np.float32), ("jamba_v0p1_52b", np.float32)]
+
+
+def _check_prefill(jp, jcfg, toks, last, wl, wc, gl, gc, tol,
+                   moe_impl="dense"):
+    """Logits, tables, KV pages and mamba states of a prefill with
+    ``last`` = [29, 31] of 32 tokens.  The port takes a mamba state after
+    each row's ``last`` position, the reference after the last one: row 1
+    is held to the reference's prefill, row 0 to the reference's prefill
+    of its 30 tokens alone.  The KV pools are compared whole, but in a
+    stack with mamba layers: past a row's last position (its pad tail,
+    which decode overwrites before reading), a layer after a mamba layer
+    sees other inputs, so there KV pages are compared up to it."""
+    np.testing.assert_allclose(_np(gl), np.asarray(wl), **tol)
+    np.testing.assert_array_equal(gc.block_tables.numpy(),
+                                  np.asarray(wc.block_tables))
+    np.testing.assert_array_equal(gc.seq_lens.numpy(),
+                                  np.asarray(wc.seq_lens))
+    assert gc.layers.keys() == wc.layers.keys()
+    short = None
+    mamba = "M" in jcfg.pattern
+    for name in wc.layers:
+        assert gc.layers[name].keys() == wc.layers[name].keys()
+        for kind, want in wc.layers[name].items():
+            got = _np(gc.layers[name][kind])
+            want = np.asarray(want, np.float32)
+            if kind in ttf.KV_LEAVES and not mamba:
+                np.testing.assert_allclose(got, want, **tol,
+                                           err_msg=f"{name}/{kind}")
+                continue
+            if kind in ttf.KV_LEAVES:
+                B, S = toks.shape
+                got = got.reshape(got.shape[0], B, S, *got.shape[3:])
+                want = want.reshape(got.shape)
+                for row in range(B):
+                    n = int(last[row]) + 1
+                    np.testing.assert_allclose(got[:, row, :n],
+                                               want[:, row, :n], **tol)
+                continue
+            np.testing.assert_allclose(got[:, 1], want[:, 1], **tol,
+                                       err_msg=f"{name}/{kind}")
+            if short is None:
+                n = int(last[0]) + 1
+                short = jtf.prefill(jp, jcfg, tokens=jnp.asarray(
+                    toks[:1, :n]), page_size=n, remat=False,
+                    moe_impl=moe_impl)[1]
+            np.testing.assert_allclose(
+                got[:, 0], np.asarray(short.layers[name][kind],
+                                      np.float32)[:, 0], **tol,
+                err_msg=f"{name}/{kind} at the last real token")
+
+
+@pytest.mark.parametrize("arch,dtype", F32_ARCHS[:2] + [
+    ("qwen2p5_3b", None)] + F32_ARCHS[2:])
 def test_forward_and_prefill_match_reference(arch, dtype):
     cfg, jcfg = get_smoke_config(arch), jget_smoke(arch)
     jp, npt = reference_params(arch, dtype)
@@ -183,40 +257,69 @@ def test_forward_and_prefill_match_reference(arch, dtype):
                          remat=False, last_pos=jnp.asarray(last))
     gl, gc = ttf.prefill(tp, cfg, torch.from_numpy(toks), 8,
                          torch.from_numpy(last))
-    np.testing.assert_allclose(_np(gl), np.asarray(wl), **tol)
-    np.testing.assert_array_equal(gc.block_tables.numpy(),
-                                  np.asarray(wc.block_tables))
-    np.testing.assert_array_equal(gc.seq_lens.numpy(),
-                                  np.asarray(wc.seq_lens))
-    for name in wc.layers:
-        for kind in ("k_pages", "v_pages"):
-            np.testing.assert_allclose(_np(gc.layers[name][kind]),
-                                       np.asarray(wc.layers[name][kind],
-                                                  np.float32), **tol)
+    _check_prefill(jp, jcfg, toks, last, wl, wc, gl, gc, tol)
 
 
-@pytest.mark.parametrize("arch,dtype", [("qwen2p5_3b", np.float32),
-                                        ("gemma2_27b", np.float32),
-                                        ("gemma2_27b", None)])
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "mixtral_8x22b",
+                                  "jamba_v0p1_52b"])
+def test_forward_and_prefill_with_ragged_moe_match_reference(arch):
+    """``moe_impl="ragged"`` through the whole model, in f32."""
+    cfg, jcfg = get_smoke_config(arch), jget_smoke(arch)
+    jp, npt = reference_params(arch)
+    tp = tsc.from_numpy(npt)
+    toks = np.random.default_rng(5).integers(1, cfg.vocab, (2, 32)) \
+        .astype(np.int32)
+    want = jtf.forward(jp, jcfg, tokens=jnp.asarray(toks), remat=False,
+                       moe_impl="ragged")
+    got = ttf.forward(tp, cfg, torch.from_numpy(toks), moe_impl="ragged")
+    np.testing.assert_allclose(_np(got), np.asarray(want), **LOGIT_TOL)
+    last = np.asarray([29, 31], np.int32)
+    wl, wc = jtf.prefill(jp, jcfg, tokens=jnp.asarray(toks), page_size=8,
+                         remat=False, last_pos=jnp.asarray(last),
+                         moe_impl="ragged")
+    gl, gc = ttf.prefill(tp, cfg, torch.from_numpy(toks), 8,
+                         torch.from_numpy(last), moe_impl="ragged")
+    _check_prefill(jp, jcfg, toks, last, wl, wc, gl, gc, LOGIT_TOL,
+                   "ragged")
+
+
+def _random_caches(cfg, rng, NP, P, bf16):
+    """Seeded decode caches for every layer of ``cfg``: KV pools of NP
+    pages (bf16-representable when ``bf16``), mamba states of 3 rows."""
+    out = {}
+    for i, (kind, _) in enumerate(ttf.layer_kinds(cfg)):
+        if kind == "M":
+            C = cfg.d_inner + 2 * cfg.ssm_state
+            shapes = {"ssm": (3, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                              cfg.ssm_state),
+                      "conv": (3, cfg.conv_width - 1, C)}
+        else:
+            kv = (NP, P, cfg.n_kv_heads, cfg.head_dim)
+            shapes = {"k_pages": kv, "v_pages": kv}
+        out[f"l{i}"] = {}
+        for name, shape in shapes.items():
+            a = rng.normal(size=(cfg.n_superblocks, *shape)).astype(
+                np.float32)
+            if bf16 and name in ttf.KV_LEAVES:
+                a = np.asarray(jnp.asarray(a, jnp.bfloat16))
+            out[f"l{i}"][name] = a
+    return out
+
+
+@pytest.mark.parametrize("arch,dtype", F32_ARCHS[:2] + [
+    ("gemma2_27b", None)] + F32_ARCHS[2:])
 def test_decode_step_matches_reference(arch, dtype):
-    """Three decode steps over random pools: two live lanes (one crossing
-    a page edge, one past gemma2's window of 32) and one idle lane whose
-    table points at scratch page 0.  Logits of the live lanes and every
-    pool page but 0 (where the idle lanes collide) must agree."""
+    """Three decode steps over random pools and mamba states: two live
+    lanes (one crossing a page edge, one past gemma2's window of 32) and
+    one idle lane whose table points at scratch page 0.  Logits of the
+    live lanes, every pool page but 0 (where the idle lanes collide) and
+    the mamba states of the live lanes, updated in place, must agree."""
     cfg, jcfg = get_smoke_config(arch), jget_smoke(arch)
     jp, npt = reference_params(arch, dtype)
     tp = tsc.from_numpy(npt)
     rng = np.random.default_rng(3)
     P, pps, NP = 8, 6, 20
-    pool_dt = np.float32 if dtype is not None else None
-    pools = {}
-    for i in range(len(cfg.pattern)):
-        pools[f"l{i}"] = {}
-        for kind in ("k_pages", "v_pages"):
-            a = rng.normal(size=(cfg.n_superblocks, NP, P, cfg.n_kv_heads,
-                                 cfg.head_dim)).astype(np.float32)
-            pools[f"l{i}"][kind] = a if pool_dt else \
-                np.asarray(jnp.asarray(a, jnp.bfloat16))
+    pools = _random_caches(cfg, rng, NP, P, bf16=dtype is None)
     bt = np.zeros((3, pps), np.int32)
     bt[0] = [5, 9, 2, 11, 0, 0]
     bt[2] = [7, 3, 14, 19, 17, 1]
@@ -225,6 +328,7 @@ def test_decode_step_matches_reference(arch, dtype):
                              jnp.asarray(bt), jnp.asarray(lens))
     tcache = ttf.DecodeCache(tsc.from_numpy(pools), torch.from_numpy(bt),
                              torch.from_numpy(lens))
+    leaves = tsc.leaves(tcache.layers)
     tol = LOGIT_TOL if dtype is not None else BF16_TOL
     for step in range(3):
         toks = rng.integers(1, cfg.vocab, (3, 1)).astype(np.int32)
@@ -236,12 +340,14 @@ def test_decode_step_matches_reference(arch, dtype):
                                    **tol, err_msg=f"step {step}")
         np.testing.assert_array_equal(tcache.seq_lens.numpy(),
                                       np.asarray(jcache.seq_lens))
+    assert all(a is b for a, b in zip(tsc.leaves(tcache.layers), leaves))
     for name in pools:
-        for kind in ("k_pages", "v_pages"):
-            np.testing.assert_allclose(
-                _np(tcache.layers[name][kind])[:, 1:],
-                np.asarray(jcache.layers[name][kind], np.float32)[:, 1:],
-                **tol, err_msg=f"{name}/{kind}")
+        for kind in pools[name]:
+            got = _np(tcache.layers[name][kind])
+            want = np.asarray(jcache.layers[name][kind], np.float32)
+            live = slice(1, None) if kind in ttf.KV_LEAVES else [0, 2]
+            np.testing.assert_allclose(got[:, live], want[:, live], **tol,
+                                       err_msg=f"{name}/{kind}")
 
 
 def test_transformer_module_runs_the_functions():

@@ -17,6 +17,7 @@ import torch
 
 import repro.core  # noqa: F401  (before repro.kernels: breaks an import cycle)
 from repro.configs import get_smoke_config as jget_smoke
+from repro.models import transformer as jtf
 from repro.serving.engine import ServingEngine as JEngine
 from repro.serving.kv_cache import PagedKVCache as JCache
 from repro_torch.configs import get_smoke_config
@@ -78,7 +79,19 @@ def _serve(engine_cls, cfg, params, prompts, n_new, **kw):
 @pytest.mark.parametrize("arch,n_req,plen,n_new,batch,max_seq", [
     ("qwen2p5_3b", 2, 13, 5, 2, 128),
     ("qwen2p5_3b", 5, 8, 4, 2, 64),        # oversubscribed: slots reused
-    ("gemma2_27b", 3, 40, 6, 2, 128)])     # decode past the window of 32
+    ("gemma2_27b", 3, 40, 6, 2, 128),      # decode past the window of 32
+    ("gemma3_12b", 2, 13, 6, 2, 64),       # past gemma3's window of 16
+    ("stablelm_3b", 2, 13, 5, 2, 128),
+    ("olmoe_1b_7b", 3, 13, 5, 2, 128),
+    ("mixtral_8x22b", 2, 40, 5, 2, 128),
+    # mamba layers: prompts fill their pages (the reference's engine
+    # carries a state over the pad tail, the port's stops at the prompt:
+    # test_engine_state_stops_at_the_prompt), and each padded length is
+    # one SSD chunk
+    ("mamba2_1p3b", 2, 16, 6, 2, 128),
+    ("mamba2_1p3b", 5, 32, 4, 2, 64),      # oversubscribed: rows reused
+    ("jamba_v0p1_52b", 2, 16, 5, 2, 128),
+    ("jamba_v0p1_52b", 5, 48, 4, 2, 128)])  # oversubscribed
 def test_engine_matches_reference_engine(arch, n_req, plen, n_new, batch,
                                          max_seq):
     jp, npt = reference_params(arch)
@@ -96,6 +109,27 @@ def test_engine_matches_reference_engine(arch, n_req, plen, n_new, batch,
     _same_stores(jeng.kv.table, teng.kv.table)
     assert set(teng.prefill_s) == set(range(n_req))
     assert len(teng.decode_s) == teng.stats["decode_steps"]
+
+
+@pytest.mark.parametrize("arch,n_req,plen", [("mamba2_1p3b", 3, 13),
+                                             ("jamba_v0p1_52b", 3, 21)])
+def test_engine_state_stops_at_the_prompt(arch, n_req, plen):
+    """Prompts that do not fill their pages, 3 requests in 2 slots: every
+    served token is the argmax of the reference's full forward over the
+    prompt and the tokens served before it (greedy decoding), so the
+    mamba states handed to decode are those after the prompt, not after
+    its pad tail."""
+    jp, npt = reference_params(arch)
+    rng = np.random.default_rng(plen)
+    prompts = [rng.integers(1, 256, (plen,)) for _ in range(n_req)]
+    _, outs = _serve(ServingEngine, get_smoke_config(arch),
+                     tsc.from_numpy(npt), prompts, 4, batch_size=2,
+                     max_seq=64, page_size=16, device="cpu")
+    for p, out in zip(prompts, outs):
+        seq = np.concatenate([p, out[:-1]]).astype(np.int32)[None]
+        logits = jtf.forward(jp, jget_smoke(arch), tokens=jnp.asarray(seq),
+                             remat=False)
+        assert out == np.asarray(logits)[0, plen - 1:].argmax(-1).tolist()
 
 
 def naive_generate(params, cfg, prompt, n_new):
@@ -127,6 +161,15 @@ def test_engine_needs_a_card_unless_cpu():
         ServingEngine(get_smoke_config("qwen2p5_3b"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedKVCache(n_pages=4, page_size=4)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-1.3b",
+                                  "jamba-v0.1-52b"])
+def test_serve_cli_serves_moe_and_ssm_archs_on_cpu(arch, capsys):
+    outs = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--requests", "3", "--new-tokens", "3"])
+    assert len(outs) == 3 and all(len(t) == 3 for t in outs.values())
+    assert "served 3 requests, 9 tokens" in capsys.readouterr().out
 
 
 def test_serve_cli_on_cpu(capsys):

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of Honeycomb once on one NVIDIA GPU.
 
 Builds the port's nine CUDA kernels from the seven sources in this
-checkout (one ``nvcc`` per source, all started together), then drives seven
+checkout (one ``nvcc`` per source, all started together), then drives eight
 main paths, the store's at the paper's node geometry (the default
 ``HoneycombConfig``: 32 B keys, 16 B values, 1273-word node images), each
 with every kernel's launch count set to 0 just before it and read just
@@ -101,6 +101,25 @@ after:
    through a second engine with those f32 weights (its slot rows held
    tight); on one olmoe layer in f32 ``moe_dense`` and ``moe_ragged``
    must agree on a decode batch and a 2,048-token prefill (both timed).
+7. Encoder-decoder and embedding inputs through ``launch/steps.py``, two
+   models one after the other at full widths and depth, random bf16
+   weights from ``--seed``: pixtral-12b (40 layers, 12,247,782,400
+   parameters) prefilled from 8 sequences of 2,048 seeded embeddings
+   (its vision frontend is a stub in the reference too), and
+   seamless-m4t-medium (12 encoder and 12 decoder layers, 977,860,608)
+   from 8 sequences of 2,048 seeded tokens, each with 256 seeded encoder
+   frames.  ``steps.prefill_step`` encodes and prefills; its pages go into
+   decode pools of ``steps.decode_cache_abstract``'s shapes (seq_len
+   4,096, pages of 256), and 15 greedy ``steps.decode_step``s follow,
+   seamless's against the ``enc_out`` its prefill returned, each running
+   paged attention in every layer.  The parameter counts must equal the
+   reference's, ``enc_out`` be finite and [8, 256, 1024], every served
+   token's logit lie within ``ENCDEC_TOL`` of its row's maximum in a
+   plain full forward per sequence, a share of them at least that
+   entry's floor be its argmax, the same decode steps through the plain
+   attention stay within that bound of the kernel's, and seamless with
+   f32 weights give the f32 full forward's logits within
+   ``ENCDEC_F32_TOL`` through prefill and decode.
 
 Then each kernel is held against its plain PyTorch version on the card at
 the shapes its path gave it; the log replay also at D = 1, 32, 1,024 and
@@ -110,7 +129,9 @@ the path's usual D and at D = 1,024; the paged-attention kernel also at the
 attention shapes of gemma2-27b (32 heads, 16 KV heads, soft-capping, a
 4,096-position window) and gemma3-12b (head dim 256, a 1,024-position
 window) on seeded synthetic pools, and its span plan is printed; and at
-the olmoe (G = 1) and jamba (G = 4) engines' own shapes and live lengths.  Each
+the olmoe (G = 1) and jamba (G = 4) engines' own shapes and live lengths, and
+at pixtral's (G = 4, D = 128) and seamless's (G = 1, D = 64) after path 7's
+decode steps.  Each
 kernel's device time comes from a torch.profiler trace with the L2 cache
 flushed before every launch (the block-mode search and the leaf merge
 in two turns); the time per call through its Python wrapper and the
@@ -255,6 +276,36 @@ F32_TOL = 0.01
 # moe_dense against moe_ragged on one olmoe layer in f32: the same routes,
 # sums of 2,048 (d) and 1,024 (f) products in other orders
 MOE_IMPL_TOL = dict(rtol=1e-4, atol=1e-4)
+# path 7, encoder-decoder and embedding inputs through launch/steps.py:
+# (arch, the reference's param_count()), each at full widths and depth;
+# 8 sequences of 2,048 prompt positions (pixtral: embeddings; seamless:
+# tokens and 2,048 / 8 = 256 encoder frames), decode caches of
+# decode_cache_abstract's shapes at seq_len 4,096 (16 pages of 256 a
+# sequence), 16 greedy tokens (the prefill's and 15 decode steps)
+ENCDEC_MODELS = (("pixtral-12b", 12_247_782_400),
+                 ("seamless-m4t-medium", 977_860_608))
+ENCDEC_BATCH = 8
+ENCDEC_PROMPT = 2048
+ENCDEC_SEQ = 4096
+ENCDEC_NEW = 16
+ENCDEC_TRACE_AT = 4             # trace decode steps 4-6
+# per model, the bf16 checks' bounds, set before the card run from
+# scripts/torch_serving_tolerance.py --encdec (smoke widths at these
+# depths, the full vocabularies, 8 sequences of 128 positions, seeds 0-5)
+# by MOE_SSM_TOL's rule: 1.5 times the rehearsal's largest figure, rounded
+# up to a multiple of 1/32; the floor its lowest share less 0.15.  "gap":
+# a served token's logit below its row's max in a plain full forward
+# (largest 0.0938 for pixtral, 0.0312 for seamless), also the bound of the
+# same decode steps through the plain attention against the kernel's
+# logits (on the CPU both are the plain version: 0.0); "agree": served
+# tokens that are that forward's argmax (lowest 118 and 120 of 128)
+ENCDEC_TOL = {
+    "pixtral-12b": {"gap": 0.15625, "agree": 118 / 128 - 0.15},
+    "seamless-m4t-medium": {"gap": 0.0625, "agree": 120 / 128 - 0.15}}
+# seamless with f32 weights: prefill + decode steps fed the served tokens
+# against the f32 full forward, path 6's F32_TOL (the rehearsal's largest
+# f32 figure: 0.000003 at every seed)
+ENCDEC_F32_TOL = F32_TOL
 # entries of the log replay's checks against its plain version; then
 # (entries, position of the bad pair) of its rejected calls
 REPLAY_CHECK_D = (1, 29, 1000, 4000)
@@ -476,7 +527,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
 
-    # ---- build every kernel of the seven paths, one nvcc per source --------
+    # ---- build every kernel of the eight paths, one nvcc per source --------
     t0 = time.perf_counter()
     reports = build.build(build.SOURCES)
     print(f"build: {time.perf_counter() - t0:.3f} s")
@@ -531,6 +582,15 @@ def main() -> int:
                                + [x["max_abs_err"] for x in moe_ssm_shapes])
     print(f"MoE/SSM serving path with its checks and timings: "
           f"{time.perf_counter() - t0:.3f} s")
+    print("== encoder-decoder and embedding inputs through launch/steps.py: "
+          "pixtral-12b, seamless-m4t-medium ==")
+    t0 = time.perf_counter()
+    encdec_launches, encdec_shapes = encdec_serving_path(args, dev, flush)
+    paged["shapes"] += encdec_shapes
+    paged["max_abs_err"] = max([paged["max_abs_err"]]
+                               + [x["max_abs_err"] for x in encdec_shapes])
+    print(f"encoder-decoder path with its checks and timings: "
+          f"{time.perf_counter() - t0:.3f} s")
     print("== kernel check: every entry point of kernels/ops.py ==")
     t0 = time.perf_counter()
     kernel_check_phase(dev)
@@ -543,7 +603,8 @@ def main() -> int:
                    "baseline": base_launches[k["name"]],
                    "live_smokes": live_launches[k["name"]],
                    "serving": serve_launches[k["name"]],
-                   "serving_moe_ssm": moe_ssm_launches[k["name"]]}
+                   "serving_moe_ssm": moe_ssm_launches[k["name"]],
+                   "serving_encdec": encdec_launches[k["name"]]}
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
         check(k["launches"] > 0, f"{k['name']} never launched")
@@ -572,6 +633,8 @@ def smoke_smem_bytes() -> dict:
         (H, KVH, D, SERVING_MAX_SEQ) for _, H, KVH, D, _, _ in PAGED_SHAPES]
     heads += [(c.n_heads, c.n_kv_heads, c.head_dim, MOE_SSM_MAX_SEQ)
               for c in map(get_config, ("olmoe-1b-7b", "jamba-v0.1-52b"))]
+    heads += [(c.n_heads, c.n_kv_heads, c.head_dim, ENCDEC_SEQ)
+              for c in (get_config(arch) for arch, _ in ENCDEC_MODELS)]
     B, P = SERVING_SLOTS, SERVING_PAGE
     return {
         "ops.key_search_image": max(key_search.image_plan(n, kw).smem_bytes
@@ -3248,23 +3311,34 @@ def moe_impl_check(eng, cfg, args, dev) -> None:
 def paged_engine_check(arch, eng, cfg, live, args, dev, flush) -> dict:
     """The paged-attention kernel against its plain version on the
     engine's first attention layer's live pool, at the engine's shapes
-    and the live lengths after the traced steps, in bf16 and f32 with the
-    serving check's tolerances; its device time (L2 flushed), time per
-    call through the wrapper, the plain version's time, SDPA over the
-    gathered K/V (a partial yardstick) and the byte bound."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import paged_attention, ref
+    and the live lengths after the traced steps (``paged_pool_check``)."""
     from repro_torch.models import transformer as tf
     j = next(i for i, (k, _) in enumerate(tf.layer_kinds(cfg)) if k != "M")
-    slots, P = SERVING_SLOTS, SERVING_PAGE
-    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kp = eng.pools[f"l{j}"]["k_pages"][0]
-    vp = eng.pools[f"l{j}"]["v_pages"][0]
-    bt = torch.zeros(slots, eng.pps, dtype=torch.int32)
+    bt = torch.zeros(SERVING_SLOTS, eng.pps, dtype=torch.int32)
     for i, (_, pages) in enumerate(live):
         bt[i, :len(pages)] = torch.tensor(pages)
-    bt = bt.to(dev)
     sl = torch.tensor([n for n, _ in live], dtype=torch.int32, device=dev)
+    return paged_pool_check(f"the {arch} engine's", f"{arch} engine", cfg,
+                            eng.pools[f"l{j}"], bt.to(dev), sl, args, dev,
+                            flush)
+
+
+def paged_pool_check(what, name, cfg, pools, bt, sl, args, dev,
+                     flush) -> dict:
+    """The paged-attention kernel against its plain version on one
+    layer's live pools (``pools["k_pages"][0]``, its first superblock),
+    block tables ``bt`` and live lengths ``sl``, in bf16 and f32 with the
+    serving check's tolerances; its device time (L2 flushed), time per
+    call through the wrapper, the plain version's time, SDPA over the
+    gathered K/V (a partial yardstick) and the byte bound.  Returns the
+    entry for the ``kernels`` line's ``shapes``, named ``name``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention, ref
+    slots, pps = bt.shape
+    P = pools["k_pages"].shape[2]
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kp = pools["k_pages"][0]
+    vp = pools["v_pages"][0]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     q = torch.randn(slots, H, D, generator=gen, device=dev) \
         .to(torch.bfloat16)
@@ -3278,8 +3352,8 @@ def paged_engine_check(arch, eng, cfg, live, args, dev, flush) -> dict:
         try:
             torch.testing.assert_close(got, want, **tol)
         except AssertionError as exc:
-            raise SmokeFailure(f"paged_attention at the {arch} engine's "
-                               f"shape ({dtype}) vs plain: {exc}")
+            raise SmokeFailure(f"paged_attention at {what} shape "
+                               f"({dtype}) vs plain: {exc}")
         err = max(err, float((got.float() - want.float()).abs().max()))
         del a, got, want
     call = [lambda: paged_attention.paged_attention(q, kp, vp, bt, sl,
@@ -3298,28 +3372,346 @@ def paged_engine_check(arch, eng, cfg, live, args, dev, flush) -> dict:
         q[:, :, None], kd, vd, attn_mask=mask, scale=scale,
         enable_gqa=True)], 64, flush)
     live_pos = int(sl.sum())
+    pages = int((-(-sl.long() // P)).sum())     # each live page id read
     io = live_pos * KVH * D * 2 * kp.element_size() \
-        + 2 * q.numel() * q.element_size() \
-        + 4 * (sum(len(pages) for _, pages in live) + 2 * slots)
+        + 2 * q.numel() * q.element_size() + 4 * (pages + 2 * slots)
     ops_ = 4 * H * D * live_pos
     bytes_ms = io / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_ / BF16_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    plan = paged_attention.span_plan(slots, H, KVH, eng.pps, P, D, kp.dtype)
-    print(f"  paged_attention at the {arch} engine's shape (B = {slots}, H "
+    plan = paged_attention.span_plan(slots, H, KVH, pps, P, D, kp.dtype)
+    print(f"  paged_attention at {what} shape (B = {slots}, H "
           f"= {H}, KVH = {KVH}, G = {H // KVH}, D = {D}, P = {P}, PPS = "
-          f"{eng.pps}, bf16, live lengths {sl.tolist()}): equals its plain "
+          f"{pps}, bf16, live lengths {sl.tolist()}): equals its plain "
           f"version in bf16 and f32 (max abs err {err:.3g}); plan "
           f"{plan._asdict()}; kernel {ms:.4f} ms device time (L2 flushed), "
           f"{wrapper_ms:.4f} ms per call through the wrapper, plain "
           f"{plain_ms:.4f} ms, SDPA over the gathered K/V {library_ms:.4f} "
           f"ms device time; bound {bound_ms:.6f} ms ({io} B; {ops_} flops "
           f"take {ops_ms:.6f} ms)")
-    return {"name": f"{arch} engine", "G": H // KVH, "ms": ms,
+    return {"name": name, "G": H // KVH, "ms": ms,
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "max_abs_err": err}
+
+
+def sync(dev) -> None:
+    """Wait for the card (nothing to wait for on the CPU)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def encdec_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    """Path 7's seeded inputs for ``prefill_step``: an embedding-input
+    model's ``embeds`` [B, S, d] (the pixtral-ViT frontend is a stub in
+    the reference too), else ``tokens`` [B, S]; an encoder-decoder
+    model's ``enc_embeds`` [B, S // enc_seq_divisor, d] (the audio
+    frontend's frames, a stub too).  Embeddings are N(0, sigma^2) in
+    bf16, sigma = vocab ** -0.5, the scale ``schema.init`` gives the
+    ``embed`` table; tokens uniform in [1, vocab)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sigma = cfg.vocab ** -0.5
+
+    def emb(n):
+        return (torch.randn(B, n, cfg.d_model, generator=gen, device=dev)
+                * sigma).to(torch.bfloat16)
+    batch = {}
+    if cfg.embeds_in:
+        batch["embeds"] = emb(S)
+    else:
+        batch["tokens"] = torch.randint(1, cfg.vocab, (B, S), generator=gen,
+                                        device=dev, dtype=torch.int32)
+    if cfg.n_enc_layers:
+        batch["enc_embeds"] = emb(S // cfg.enc_seq_divisor)
+    return batch
+
+
+def decode_room(cache, cfg, seq_len: int, dev):
+    """Prefill's caches (B sequences of pps pages, identity block tables)
+    moved into pools of ``launch/steps.decode_cache_abstract``'s shapes
+    for a decode ``ShapeConfig`` of ``seq_len`` and batch B, in prefill's
+    dtype: sequence b's pages become pages b * room .. b * room + pps - 1
+    (room = seq_len // P), under identity block tables, lengths kept.
+    (Smoke code: the package's engine allocates pages through its page
+    table.)"""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ShapeConfig
+    B, pps = cache.block_tables.shape
+    P = next(iter(cache.layers.values()))["k_pages"].shape[2]
+    spec = steps.decode_cache_abstract(
+        cfg, ShapeConfig("encdec", "decode", seq_len, B, P))
+    room = spec.block_tables.shape[1]
+    layers = {}
+    for name, c in cache.layers.items():
+        layers[name] = {}
+        for kind, t in c.items():
+            big = torch.zeros(spec.layers[name][kind].shape, dtype=t.dtype,
+                              device=dev)
+            big.view(t.shape[0], B, room, *t.shape[2:])[:, :, :pps] = \
+                t.view(t.shape[0], B, pps, *t.shape[2:])
+            layers[name][kind] = big
+    bt = torch.arange(B * room, dtype=torch.int32, device=dev).view(B, room)
+    return tf.DecodeCache(layers, bt, cache.seq_lens.clone())
+
+
+def serve_encdec(model, batch: dict, P: int, seq_len: int, new: int, dev,
+                 trace_at=None) -> dict:
+    """Path 7's main path through ``launch/steps.py``: ``prefill_step``
+    (the encoder, then prefill from tokens or embeddings with its
+    output), the caches moved into decode pools (``decode_room``), and
+    ``new - 1`` greedy ``decode_step``s against the request's own
+    ``enc_out``; steps ``trace_at`` .. ``trace_at + 2`` under the
+    profiler.  Returns {"served" [B, new], "logits" of the decode steps
+    [new - 1, B, V], "cache", "enc_out", "first" (prefill's logits),
+    "prefill_s", "step_s" (host clock, each ending in a sync), "trace"}."""
+    from repro_torch.launch import steps
+    sync(dev)
+    t0 = time.perf_counter()
+    first, cache, enc_out = steps.prefill_step(model, batch, P)
+    sync(dev)
+    out = {"prefill_s": time.perf_counter() - t0, "enc_out": enc_out,
+           "first": first, "step_s": [], "trace": None}
+    cache = decode_room(cache, model.cfg, seq_len, dev)
+    served, rows = [first.argmax(dim=-1)], []
+
+    def step():
+        nonlocal cache
+        lg, cache = steps.decode_step(model, cache, served[-1][:, None], P,
+                                      enc_out=enc_out)
+        rows.append(lg)
+        served.append(lg.argmax(dim=-1))
+    while len(served) < new:
+        if len(rows) == trace_at:
+            out["trace"] = device_events(lambda: [step() for _ in range(3)])
+            continue
+        t0 = time.perf_counter()
+        step()
+        sync(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+    out.update(served=torch.stack(served, dim=1), logits=torch.stack(rows),
+               cache=cache)
+    return out
+
+
+def replay_encdec(model, cache, served, P: int, enc_out, attn=None):
+    """Decode steps from ``cache`` (its lengths at the prompt's) fed the
+    served tokens but the last, through ``attn``: the steps of
+    ``serve_encdec`` again when given its pools with their lengths set
+    back (each step rewrites its position before reading it).  Returns
+    their logits [new - 1, B, V]."""
+    from repro_torch.launch import steps
+    c, rows = cache, []
+    for i in range(served.shape[1] - 1):
+        lg, c = steps.decode_step(model, c, served[:, i:i + 1], P,
+                                  enc_out=enc_out, attn=attn)
+        rows.append(lg)
+    return torch.stack(rows)
+
+
+def encdec_full(model, batch: dict, served, enc_out, b: int):
+    """A plain full forward's logits [new, V] for sequence b over its
+    prompt and the tokens served before the last, cross-attending to its
+    ``enc_out`` where there is one: an embedding-input model takes
+    ``cat(prompt embeddings, embed[served[:-1]])`` (decode embeds
+    tokens)."""
+    S = next(v for k, v in batch.items() if k in ("embeds", "tokens")) \
+        .shape[1]
+    fed = served[b, :-1]
+    eo = None if enc_out is None else enc_out[b:b + 1]
+    if "embeds" in batch:
+        rows = model.params["embed"][fed.long()]
+        e = torch.cat([batch["embeds"][b].to(rows.dtype), rows])
+        return model(embeds=e[None], enc_out=eo)[0, S - 1:]
+    toks = torch.cat([batch["tokens"][b], fed.to(batch["tokens"].dtype)])
+    return model(toks[None], enc_out=eo)[0, S - 1:]
+
+
+def encdec_gap(model, batch: dict, served, enc_out) -> tuple:
+    """Every served token against a plain full forward, one sequence at
+    a time (``encdec_full``): (largest gap between a served token's logit
+    and its row's maximum, served tokens that are the forward's argmax,
+    served tokens)."""
+    gap, agree = 0.0, 0
+    for b in range(served.shape[0]):
+        logits = encdec_full(model, batch, served, enc_out, b)
+        rows = torch.arange(served.shape[1], device=logits.device)
+        chosen = logits[rows, served[b].long()]
+        gap = max(gap, float((logits.max(dim=-1).values - chosen).max()))
+        agree += int((logits.argmax(dim=-1) == served[b]).sum())
+        del logits
+    return gap, agree, served.numel()
+
+
+def encdec_f32_drift(model, batch: dict, served, P: int, seq_len: int,
+                     dev) -> float:
+    """With ``model``'s f32 weights: prefill + decode steps fed the served
+    tokens (``replay_encdec`` on f32 pools) against the f32 full forward
+    over the same tokens with the model's own ``enc_out``: the largest
+    absolute logit difference."""
+    from repro_torch.launch import steps
+    first, cache, enc_out = steps.prefill_step(model, batch, P)
+    cache = decode_room(cache, model.cfg, seq_len, dev)
+    rows = torch.cat([first[None], replay_encdec(model, cache, served, P,
+                                                 enc_out)])
+    drift = 0.0
+    for b in range(served.shape[0]):
+        full = encdec_full(model, batch, served, enc_out, b)
+        drift = max(drift, float((rows[:, b] - full).abs().max()))
+    return drift
+
+
+def encdec_serving_path(args, dev, flush):
+    """Path 7: pixtral-12b and seamless-m4t-medium at full widths and
+    depth, random bf16 weights from ``--seed``, one after another, each
+    prefilled and decoded through ``launch/steps.py``
+    (``serve_encdec``).  Returns the launch counts summed over both runs
+    and the paged-attention kernel's checks at their shapes."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory before path 7: {torch.cuda.memory_allocated()} B "
+          f"allocated; peak of the run so far "
+          f"{torch.cuda.max_memory_allocated()} B")
+    torch.cuda.reset_peak_memory_stats()
+    launches, shapes = collections.Counter(), []
+    for arch, want in ENCDEC_MODELS:
+        t0 = time.perf_counter()
+        counts, shape = serve_encdec_model(args, dev, flush, arch, want)
+        launches.update(counts)
+        shapes.append(shape)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {arch}: {time.perf_counter() - t0:.3f} s with its checks "
+              f"and timings")
+    print(f"  path 7's peak allocation {torch.cuda.max_memory_allocated()} B")
+    return launches, shapes
+
+
+def serve_encdec_model(args, dev, flush, arch, want_params):
+    """One model of path 7: its parameter count against the reference's
+    and what the model holds; ``serve_encdec`` with every launch count
+    set to 0 just before it; the launch counts (paged attention once per
+    layer and decode step, no other kernel); ``enc_out``'s shape and
+    finiteness; every served token against a plain full forward; the same
+    decode steps through the plain attention; for seamless, the f32
+    handoff; the kernel against its plain version at the model's shape
+    and live lengths.  Returns (launches, the kernel's shape check)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ref
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(arch)
+    n_params = cfg.param_count()
+    check(n_params == want_params, f"{arch}: {n_params} parameters by the "
+          f"port's schema, the reference counts {want_params}")
+    B, S, P, new = ENCDEC_BATCH, ENCDEC_PROMPT, SERVING_PAGE, ENCDEC_NEW
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = tf.Transformer(cfg, sc.init(tf.schema(cfg), gen, dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sc.leaves(model.params)
+    held = sum(t.numel() for t in weights)
+    check(held == n_params, f"{arch}: the model holds {held} parameters, "
+          f"the schema counts {n_params}")
+    batch = encdec_batch(cfg, B, S, args.seed, dev)
+    print(f"{arch}: {cfg.n_layers} decoder layers, {cfg.n_enc_layers} "
+          f"encoder layers, d {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads, head {cfg.head_dim}, vocab "
+          f"{cfg.vocab}; {n_params} parameters (the reference's "
+          f"param_count()), {sum(t.numel() * t.element_size() for t in weights)}"
+          f" B of bf16 weights drawn on the card in {init_s:.3f} s; inputs "
+          + ", ".join(f"{k} {list(v.shape)} {v.dtype}"
+                      for k, v in batch.items()))
+
+    # ---- the main path, every launch count set to 0 just before it -------
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run = serve_encdec(model, batch, P, ENCDEC_SEQ, new, dev,
+                       trace_at=ENCDEC_TRACE_AT)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+
+    cache, enc_out, served = run["cache"], run["enc_out"], run["served"]
+    steps_n = new - 1
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in sc.leaves(cache.layers))
+    check(launches["paged_attention"] == cfg.n_layers * steps_n,
+          f"{arch}: {launches['paged_attention']} paged_attention launches "
+          f"for {steps_n} decode steps of {cfg.n_layers} layers")
+    check(all(v == 0 for k, v in launches.items() if k != "paged_attention"),
+          f"{arch}: path 7 launched another kernel: {launches}")
+    check(served.shape == (B, new) and bool(
+        (cache.seq_lens == S + steps_n).all()),
+          f"{arch}: served {list(served.shape)}, lengths "
+          f"{cache.seq_lens.tolist()}")
+    if cfg.n_enc_layers:
+        frames = S // cfg.enc_seq_divisor
+        check(enc_out.shape == (B, frames, cfg.d_model)
+              and bool(torch.isfinite(enc_out).all()),
+              f"{arch}: enc_out {list(enc_out.shape)}, finite "
+              f"{bool(torch.isfinite(enc_out).all())}")
+        print(f"  encode: enc_out {list(enc_out.shape)} {enc_out.dtype}, "
+              f"finite, |x| up to {float(enc_out.abs().max()):.3f}")
+    events, window_us = run["trace"]
+    busy_us = sum(t for _, t in events)
+    step_ms = [t * 1e3 for t in run["step_s"]]
+    print(f"  prefill of {B} x {S} positions through steps.prefill_step "
+          f"{run['prefill_s'] * 1e3:.1f} ms (host clock, the encoder "
+          f"included); {steps_n} decode steps through steps.decode_step in "
+          f"{run_s:.3f} s with the prefill; decode step median "
+          f"{statistics.median(step_ms):.3f} ms, max {max(step_ms):.3f} ms "
+          f"over {len(step_ms)} untraced steps (host clock); device busy "
+          f"{busy_us / window_us:.4f} of 3 traced decode steps "
+          f"({busy_us:.1f} of {window_us:.1f} us); decode pools "
+          f"{pool_bytes} B; launches {launches}")
+    print_activities(events, f"{arch} decode steps")
+
+    # ---- the served tokens against a plain full forward -----------------
+    tol = ENCDEC_TOL[arch]
+    gap, agree, n = encdec_gap(model, batch, served, enc_out)
+    print(f"  served tokens: the full forward's argmax equals {agree} of {n} "
+          f"(floor {tol['agree']:.4f} of them); largest gap between a "
+          f"served token's logit and its row's max {gap:.4f} (tolerance "
+          f"{tol['gap']})")
+    check(gap <= tol["gap"], f"{arch}: a served token's logit lies "
+          f"{gap:.4f} below its row's max in the full forward")
+    check(agree >= tol["agree"] * n, f"{arch}: {agree} of {n} served "
+          f"tokens are the full forward's argmax")
+    plain = replay_encdec(model, cache._replace(
+        seq_lens=cache.seq_lens - steps_n), served, P, enc_out,
+        attn=ref.paged_attention_ref)
+    between = float((plain - run["logits"]).abs().max())
+    print(f"  the same {steps_n} decode steps through the plain attention: "
+          f"max abs diff to the kernel's logits {between:.4f} (tolerance "
+          f"{tol['gap']})")
+    check(between <= tol["gap"], f"{arch}: decode logits through the kernel "
+          f"and through the plain attention differ by {between:.4f}")
+    del plain, run
+
+    bt = cache.block_tables
+    shape = paged_pool_check(f"{arch}'s", arch, cfg, cache.layers["l0"], bt,
+                             cache.seq_lens, args, dev, flush)
+    del cache, model, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.n_enc_layers:    # the same inputs with f32 weights
+        schema32 = sc.map_tree(lambda d: dataclasses.replace(
+            d, dtype=torch.float32), tf.schema(cfg))
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        model = tf.Transformer(cfg, sc.init(schema32, gen, dev))
+        drift = encdec_f32_drift(model, batch, served, P, ENCDEC_SEQ, dev)
+        print(f"  f32 weights drawn on the card: prefill + {steps_n} decode "
+              f"steps fed the served tokens vs the f32 full forward: max "
+              f"abs diff {drift:.6f} (tolerance {ENCDEC_F32_TOL})")
+        check(drift <= ENCDEC_F32_TOL, f"{arch}: f32 prefill + decode "
+              f"logits differ from the full forward by {drift:.6f}")
+        del model
+    return launches, shape
 
 
 if __name__ == "__main__":

@@ -17,12 +17,24 @@ every route forced to the full forward's, and how many routes flipped
 (``handoff_drift``).  The same in f32 shows what is the arithmetic's
 and what bf16's.
 
-    python scripts/torch_serving_tolerance.py [--seeds 6]
+With ``--encdec``, the same for path 7 (``chip_smoke.ENCDEC_TOL``):
+pixtral-12b (40 layers) and seamless-m4t-medium (12 encoder and 12
+decoder layers) at their smoke widths and full vocabularies, 8
+sequences through ``launch/steps.py``'s ``prefill_step`` and
+``decode_step`` with the smoke's own functions (``serve_encdec``,
+``encdec_gap``, ``replay_encdec``, ``encdec_f32_drift``): the served
+tokens' gap and argmax agreement, the decode steps through the plain
+attention against the served run (on the CPU both are the plain
+version), seamless's f32 drift; then the bounds by the rule of
+``chip_smoke.MOE_SSM_TOL``.
+
+    python scripts/torch_serving_tolerance.py [--seeds 6] [--encdec]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import sys
 from pathlib import Path
 
@@ -30,8 +42,11 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import handoff_drift, served_gap  # noqa: E402  (adds src/)
+from chip_smoke import (encdec_batch, encdec_f32_drift,  # noqa: E402
+                        encdec_gap, handoff_drift, replay_encdec,
+                        serve_encdec, served_gap)  # (adds src/)
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import schema as sc  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
@@ -39,6 +54,11 @@ from repro_torch.serving import ServingEngine  # noqa: E402
 # (arch, layers): the depths chip_smoke.py serves (jamba: one superblock)
 ARCHS = (("olmoe-1b-7b", 16), ("mamba2-1.3b", 48), ("jamba-v0.1-52b", 8))
 PAGE, MAX_SEQ, SLOTS, REQUESTS, NEW = 64, 512, 4, 8, 16
+# path 7: (arch, decoder layers, encoder layers) at the card's depths; 8
+# sequences of 128 prompt positions in pages of 16, decode pools of 256
+# positions a sequence, 16 greedy tokens
+ENCDEC = (("pixtral-12b", 40, 0), ("seamless-m4t-medium", 12, 12))
+ENC_BATCH, ENC_PROMPT, ENC_PAGE, ENC_SEQ = 8, 128, 16, 256
 
 
 def rehearse(cfg, params, seed: int) -> dict:
@@ -66,11 +86,68 @@ def rehearse(cfg, params, seed: int) -> dict:
     return out
 
 
+def rehearse_encdec(cfg, seed: int) -> dict:
+    """One seed's figures of path 7: served-token gap and agreement, the
+    plain attention's decode logits against the served run's, and (with
+    an encoder) the f32 drift of prefill + decode against the f32 full
+    forward."""
+    params = sc.init(tf.schema(cfg), torch.Generator().manual_seed(seed),
+                     "cpu")
+    model = tf.Transformer(cfg, params)
+    batch = encdec_batch(cfg, ENC_BATCH, ENC_PROMPT, seed, "cpu")
+    run = serve_encdec(model, batch, ENC_PAGE, ENC_SEQ, NEW, "cpu")
+    gap, agree, n = encdec_gap(model, batch, run["served"], run["enc_out"])
+    cache = run["cache"]
+    plain = replay_encdec(model, cache._replace(
+        seq_lens=cache.seq_lens - (NEW - 1)), run["served"], ENC_PAGE,
+        run["enc_out"], attn=ref.paged_attention_ref)
+    out = {"gap": gap, "agree": agree / n,
+           "plain": float((plain - run["logits"]).abs().max()), "f32": None}
+    if cfg.n_enc_layers:
+        model32 = tf.Transformer(cfg, sc.map_tree(lambda t: t.float(),
+                                                  params))
+        out["f32"] = encdec_f32_drift(model32, batch, run["served"],
+                                      ENC_PAGE, ENC_SEQ, "cpu")
+    return out
+
+
+def bound(x: float) -> float:
+    """1.5 times the largest figure, rounded up to a multiple of 1/32."""
+    return math.ceil(1.5 * x * 32) / 32
+
+
+def main_encdec(seeds: int) -> None:
+    for arch, layers, enc_layers in ENCDEC:
+        cfg = dataclasses.replace(get_smoke_config(arch), n_layers=layers,
+                                  n_enc_layers=enc_layers,
+                                  vocab=get_config(arch).vocab)
+        res = [rehearse_encdec(cfg, seed) for seed in range(seeds)]
+
+        def col(key):
+            return [None if r[key] is None else round(r[key], 6)
+                    for r in res]
+        gap = max(r["gap"] for r in res)
+        agree = min(r["agree"] for r in res)
+        print(f"{arch} smoke, {layers} + {enc_layers} layers, vocab "
+              f"{cfg.vocab}, bf16 (seeds 0-{seeds - 1}; {ENC_BATCH} "
+              f"sequences of {ENC_PROMPT} prompt positions, {NEW} tokens): "
+              f"served-token gap {col('gap')}, argmax agreement "
+              f"{col('agree')}, plain attention vs served run "
+              f"{col('plain')}, f32 drift {col('f32')}; bounds: gap "
+              f"{bound(gap)} (largest {gap:.4f}), agreement floor "
+              f"{agree - 0.15:.4f} (lowest {agree:.4f})", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, default=6)
+    ap.add_argument("--encdec", action="store_true",
+                    help="rehearse path 7 (pixtral, seamless) only")
     args = ap.parse_args(argv)
     torch.set_num_threads(4)
+    if args.encdec:
+        main_encdec(args.seeds)
+        return
     for arch, layers in ARCHS:
         cfg = dataclasses.replace(get_smoke_config(arch), n_layers=layers,
                                   vocab=get_config(arch).vocab)

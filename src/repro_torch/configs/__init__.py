@@ -1,6 +1,5 @@
-"""Architecture registry (port of ``repro.configs``): the reference's
-configurations but the two that need encoders or embedding inputs
-(pixtral-12b, seamless-m4t-medium: ROADMAP A, item 4)."""
+"""Architecture registry (port of ``repro.configs``): the reference's ten
+configurations, one module each."""
 from __future__ import annotations
 
 import importlib
@@ -9,7 +8,8 @@ from ..models.config import ArchConfig
 
 ARCH_IDS = [
     "mamba2_1p3b", "mixtral_8x22b", "olmoe_1b_7b", "stablelm_3b",
-    "gemma2_27b", "gemma3_12b", "qwen2p5_3b", "jamba_v0p1_52b",
+    "gemma2_27b", "gemma3_12b", "qwen2p5_3b", "pixtral_12b",
+    "seamless_m4t_medium", "jamba_v0p1_52b",
 ]
 
 # canonical ids as assigned (hyphens/dots) -> module names
@@ -21,6 +21,8 @@ ALIASES = {
     "gemma2-27b": "gemma2_27b",
     "gemma3-12b": "gemma3_12b",
     "qwen2.5-3b": "qwen2p5_3b",
+    "pixtral-12b": "pixtral_12b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "jamba-v0.1-52b": "jamba_v0p1_52b",
 }
 
@@ -28,8 +30,7 @@ ALIASES = {
 def _module(arch: str):
     mod = ALIASES.get(arch, arch).replace("-", "_").replace(".", "p")
     if mod not in ARCH_IDS:
-        raise KeyError(f"{arch}: the port carries only {ARCH_IDS}; encoders "
-                       f"and embedding inputs wait for ROADMAP A, item 4")
+        raise KeyError(f"{arch}: not one of {ARCH_IDS}")
     return importlib.import_module(f"{__name__}.{mod}")
 
 

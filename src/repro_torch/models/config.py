@@ -1,10 +1,9 @@
 """Architecture configuration (port of ``repro.models.config``).
 
 The same frozen dataclass as the reference, field for field, and its
-decode/prefill shape table.  ``param_count`` and ``active_param_count``
-go through the port's own schema (``models/transformer.py``), which
-raises for encoder-decoder models and embedding inputs (not ported:
-ROADMAP A, item 4).
+shape table with ``shape_by_name``.  ``param_count`` and
+``active_param_count`` go through the port's own schema
+(``models/transformer.py``), encoders and cross attention included.
 """
 from __future__ import annotations
 
@@ -107,3 +106,9 @@ LM_SHAPES = (
     ShapeConfig("long_500k", "decode", 524288, 1),
 )
 
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in LM_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

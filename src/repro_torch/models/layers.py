@@ -1,13 +1,14 @@
 """Transformer layers (port of ``repro.models.layers``): RMSNorm, RoPE,
 GQA attention for prefill (causal, sliding window, ``seq_lens`` mask,
-query chunks) and for paged decode, the gated MLP.
+query chunks) and for paged decode, the gated MLP, and the
+encoder-decoder cross attention (no RoPE, no causal mask), which the
+encoder also runs as its bidirectional self-attention.
 
 Pure functions of (params, inputs, cfg) with the reference's dtypes step
 by step: scores, softmax, RoPE and norms in f32, probabilities cast to
 V's type before the product, results cast back to the input's type.  The
 large products stay ``torch.matmul``, as the reference leaves them to
-XLA.  Not ported: ``cross_attention`` (encoder-decoder models, ROADMAP
-A, item 4).
+XLA.
 """
 from __future__ import annotations
 
@@ -184,3 +185,32 @@ def mlp(p, x):
     g = torch.matmul(x, p["w_gate"])
     u = torch.matmul(x, p["w_up"])
     return torch.matmul(F.silu(g) * u, p["w_down"])
+
+
+# ------------------------------------------------------- cross attention
+def cross_attention_schema(cfg: ArchConfig):
+    return attention_schema(cfg)
+
+
+def cross_attention(p, x, ctx, cfg: ArchConfig, ctx_lens=None):
+    """Encoder-decoder cross attention: queries from x [B, S, d], keys
+    and values from the encoder output ctx [B, Senc, d].  No RoPE and no
+    causal mask (as in the reference, the projections' biases are not
+    added); ``ctx_lens`` [B] masks keys at or past each row's length."""
+    B, S, _ = x.shape
+    Senc = ctx.shape[1]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.matmul(x, p["wq"]).reshape(B, S, h, hd)
+    k = torch.matmul(ctx, p["wk"]).reshape(B, Senc, kv, hd)
+    v = torch.matmul(ctx, p["wv"]).reshape(B, Senc, kv, hd)
+    g = cfg.q_per_kv
+    kr = torch.repeat_interleave(k, g, dim=2)      # [B, Senc, H, hd]
+    vr = torch.repeat_interleave(v, g, dim=2)
+    s = torch.einsum("bqhd,bshd->bhqs", q.to(F32) * hd ** -0.5, kr.to(F32))
+    if ctx_lens is not None:
+        mask = torch.arange(Senc, device=x.device)[None, :] \
+            < ctx_lens[:, None]
+        s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    probs = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqs,bshd->bqhd", probs.to(vr.dtype), vr)
+    return torch.matmul(o.reshape(B, S, h * hd), p["wo"])

@@ -10,11 +10,21 @@ leading superblock dimension, so the reference's parameter tree converts
 leaf for leaf (``schema.from_numpy``).  The reference scans over
 superblocks; the port loops over them eagerly.
 
+Encoder-decoder models (seamless) carry a stack of ``n_enc_layers``
+encoder layers (``enc_blocks``, ``enc_norm``): ``encode`` runs them as
+bidirectional self-attention through the cross-attention primitive, and
+every non-``M`` decoder layer has ``ln_x``/``xattn`` leaves, which add
+cross attention to ``enc_out`` after the mixer and before the FFN
+wherever ``enc_out`` is given (the full forward, prefill and each decode
+step; the cross K/V are projected anew in every call, as in the
+reference).  Embedding-input models (pixtral) take ``embeds`` in place
+of token ids in ``forward`` and ``prefill``, cast to ``lm_head``'s
+dtype; decode always embeds tokens.
+
 Decode is paged: each attention layer has a KV page pool indexed by block
 tables that come from Honeycomb GETs (``serving/kv_cache.py``); each
 mamba layer has its recurrent state and conv tail at the request's slot
-row.  Not ported (ROADMAP A, item 4): encoder-decoder models and
-embedding inputs; their schemas raise.
+row.  The reference keeps no cross-attention cache, nor does the port.
 """
 from __future__ import annotations
 
@@ -49,19 +59,15 @@ def layer_kinds(cfg: ArchConfig) -> list[tuple[str, str | None]]:
     return out
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.n_enc_layers or cfg.embeds_in:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: encoders and embedding inputs are not ported "
-            f"(ROADMAP A, item 4)")
-
-
 def _layer_schema(cfg: ArchConfig, kind: str, ffn: str | None):
     s: dict[str, Any] = {"ln1": ll.rmsnorm_schema(cfg.d_model)}
     if kind == "M":
         s["mamba"] = mm.mamba_schema(cfg)
     else:
         s["attn"] = ll.attention_schema(cfg)
+    if cfg.n_enc_layers and kind != "M":
+        s["ln_x"] = ll.rmsnorm_schema(cfg.d_model)
+        s["xattn"] = ll.cross_attention_schema(cfg)
     if ffn is not None:
         s["ln2"] = ll.rmsnorm_schema(cfg.d_model)
         s["ffn"] = me.moe_schema(cfg) if ffn == "moe" else ll.mlp_schema(cfg)
@@ -69,19 +75,29 @@ def _layer_schema(cfg: ArchConfig, kind: str, ffn: str | None):
 
 
 def superblock_schema(cfg: ArchConfig):
-    _check_ported(cfg)
     return {f"l{i}": _layer_schema(cfg, kind, ffn)
             for i, (kind, ffn) in enumerate(layer_kinds(cfg))}
 
 
+def _encoder_layer_schema(cfg: ArchConfig):
+    return {"ln1": ll.rmsnorm_schema(cfg.d_model),
+            "attn": ll.attention_schema(cfg),
+            "ln2": ll.rmsnorm_schema(cfg.d_model),
+            "mlp": ll.mlp_schema(cfg)}
+
+
 def schema(cfg: ArchConfig):
     d, v = cfg.d_model, cfg.vocab
-    return {
+    s: dict[str, Any] = {
         "embed": ParamDef((v, d), torch.bfloat16, "embed"),
         "blocks": stack(cfg.n_superblocks, superblock_schema(cfg)),
         "final_norm": ll.rmsnorm_schema(d),
         "lm_head": ParamDef((d, v)),
     }
+    if cfg.n_enc_layers:
+        s["enc_blocks"] = stack(cfg.n_enc_layers, _encoder_layer_schema(cfg))
+        s["enc_norm"] = ll.rmsnorm_schema(d)
+    return s
 
 
 def moe_param_count(cfg: ArchConfig) -> int:
@@ -109,8 +125,16 @@ def _ffn(p, x, cfg: ArchConfig, ffn: str | None, moe_impl="dense"):
     return x + f
 
 
+def _xattn(p, x, cfg: ArchConfig, kind: str, enc_out):
+    """Cross attention to ``enc_out`` on a non-``M`` layer, where given."""
+    if enc_out is None or kind == "M":
+        return x
+    h = ll.rmsnorm(p["ln_x"], x)
+    return x + ll.cross_attention(p["xattn"], h, enc_out, cfg)
+
+
 def _layer(p, x, cfg: ArchConfig, kind: str, ffn: str | None,
-           moe_impl="dense", last_pos=None):
+           moe_impl="dense", last_pos=None, enc_out=None):
     """One layer over a whole sequence: (x, cache), the cache (k, v) of an
     attention layer or the ``MambaState`` after ``last_pos`` [B] (the last
     position when None) of a mamba layer."""
@@ -120,7 +144,16 @@ def _layer(p, x, cfg: ArchConfig, kind: str, ffn: str | None,
                                   last_pos=last_pos)
     else:
         y, cache = ll.attention(p["attn"], h, cfg, local=(kind == "L"))
-    return _ffn(p, x + y, cfg, ffn, moe_impl), cache
+    x = _xattn(p, x + y, cfg, kind, enc_out)
+    return _ffn(p, x, cfg, ffn, moe_impl), cache
+
+
+def _embed(params, tokens, embeds):
+    """Token embeddings, or ``embeds`` cast to ``lm_head``'s dtype (as in
+    the reference: not ``embed``'s)."""
+    if embeds is None:
+        return params["embed"][tokens.long()]
+    return embeds.to(params["lm_head"].dtype)
 
 
 def _logits(params, cfg: ArchConfig, x):
@@ -131,15 +164,34 @@ def _logits(params, cfg: ArchConfig, x):
     return logits
 
 
-def forward(params, cfg: ArchConfig, tokens, moe_impl: str = "dense"):
-    """Full forward over ``tokens`` [B, S] -> logits [B, S, V] (f32)."""
-    x = params["embed"][tokens.long()]
+def forward(params, cfg: ArchConfig, tokens=None, moe_impl: str = "dense",
+            embeds=None, enc_out=None):
+    """Full forward over ``tokens`` [B, S] (or ``embeds`` [B, S, d]),
+    cross-attending to ``enc_out`` [B, Senc, d] where given -> logits
+    [B, S, V] (f32)."""
+    x = _embed(params, tokens, embeds)
     kinds = layer_kinds(cfg)
     for i in range(cfg.n_superblocks):
         blk = _at(params["blocks"], i)
         for j, (kind, ffn) in enumerate(kinds):
-            x, _ = _layer(blk[f"l{j}"], x, cfg, kind, ffn, moe_impl)
+            x, _ = _layer(blk[f"l{j}"], x, cfg, kind, ffn, moe_impl,
+                          enc_out=enc_out)
     return _logits(params, cfg, x)
+
+
+def encode(params, cfg: ArchConfig, enc_embeds):
+    """The encoder stack over ``enc_embeds`` [B, Senc, d] (cast to
+    ``lm_head``'s dtype): per layer RMSNorm, bidirectional self-attention
+    through the cross-attention primitive (no RoPE, no mask), the
+    residual, the MLP; ``enc_norm`` last.  Returns [B, Senc, d]."""
+    x = enc_embeds.to(params["lm_head"].dtype)
+    for i in range(cfg.n_enc_layers):
+        p = _at(params["enc_blocks"], i)
+        h = ll.rmsnorm(p["ln1"], x)
+        x = x + ll.cross_attention(p["attn"], h, h, cfg)
+        h = ll.rmsnorm(p["ln2"], x)
+        x = x + ll.mlp(p["mlp"], h)
+    return ll.rmsnorm(params["enc_norm"], x)
 
 
 class DecodeCache(NamedTuple):
@@ -149,16 +201,19 @@ class DecodeCache(NamedTuple):
     seq_lens: Any        # i32 [B]
 
 
-def prefill(params, cfg: ArchConfig, tokens, page_size: int = 256,
-            last_pos=None, moe_impl: str = "dense"):
-    """Forward over the prompt, returning last-token logits and the
-    decode caches: KV pages (identity block tables) and mamba states.
+def prefill(params, cfg: ArchConfig, tokens=None, page_size: int = 256,
+            last_pos=None, moe_impl: str = "dense", embeds=None,
+            enc_out=None):
+    """Forward over the prompt (``tokens`` [B, S] or ``embeds`` [B, S,
+    d]), cross-attending to ``enc_out`` where given, returning last-token
+    logits and the decode caches: KV pages (identity block tables) and
+    mamba states.
 
     ``last_pos`` ([B] or scalar) selects which position's logits to
     return (page-padded prompts: the real last token, not the pad tail),
     and the position after which each mamba state is taken.
     Returns (logits [B, V], DecodeCache)."""
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, embeds)
     B, S, _ = x.shape
     if S % page_size:
         raise ValueError(f"prompt length {S} is not a multiple of the page "
@@ -173,7 +228,8 @@ def prefill(params, cfg: ArchConfig, tokens, page_size: int = 256,
     for i in range(cfg.n_superblocks):
         blk = _at(params["blocks"], i)
         for j, (kind, ffn) in enumerate(kinds):
-            x, c = _layer(blk[f"l{j}"], x, cfg, kind, ffn, moe_impl, idx)
+            x, c = _layer(blk[f"l{j}"], x, cfg, kind, ffn, moe_impl, idx,
+                          enc_out)
             if kind == "M":
                 new = {"ssm": c.ssm, "conv": c.conv}
             else:
@@ -199,8 +255,9 @@ def layer_cache_schema(cfg: ArchConfig, batch: int, pages_per_seq: int,
                        page_size: int):
     """ParamDef tree for one superblock's caches (stacked by the caller):
     KV page pools of ``batch * pages_per_seq`` pages for attention layers,
-    a state and a conv tail per batch row for mamba layers."""
-    _check_ported(cfg)
+    a state and a conv tail per batch row for mamba layers (no
+    cross-attention cache: decode projects ``enc_out`` anew, as in the
+    reference)."""
     n_pages = batch * pages_per_seq
     kv = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     out = {}
@@ -219,11 +276,13 @@ def layer_cache_schema(cfg: ArchConfig, batch: int, pages_per_seq: int,
 
 
 def decode_step(params, cfg: ArchConfig, cache: DecodeCache, tokens,
-                page_size: int, attn=None):
+                page_size: int, attn=None, enc_out=None):
     """One decode token for the whole batch: tokens [B, 1] int.  The pools
     and mamba states of ``cache.layers`` are updated in place.  ``attn``
     is the paged attention (``kernels/ops.paged_attention`` when None).
-    The MoE FFN is the dense one, as in the reference.
+    The MoE FFN is the dense one, as in the reference.  With ``enc_out``
+    [B, Senc, d], each non-``M`` layer cross-attends to all Senc frames
+    (no ``ctx_lens``, as in the reference).
     Returns (logits [B, V], DecodeCache with seq_lens + 1)."""
     x = params["embed"][tokens.long()]
     bt, lens = cache.block_tables, cache.seq_lens
@@ -243,7 +302,7 @@ def decode_step(params, cfg: ArchConfig, cache: DecodeCache, tokens,
                 y, _ = ll.decode_attention(
                     p["attn"], h, cfg, c["k_pages"], c["v_pages"], bt, lens,
                     local=(kind == "L"), page_size=page_size, attn=attn)
-            x = _ffn(p, x + y, cfg, ffn)
+            x = _ffn(p, _xattn(p, x + y, cfg, kind, enc_out), cfg, ffn)
     return _logits(params, cfg, x)[:, 0], DecodeCache(cache.layers, bt,
                                                       lens + 1)
 
@@ -269,11 +328,11 @@ class _Tree(nn.Module):
 class Transformer(nn.Module):
     """One model's parameter tree as an ``nn.Module`` (the leaves are
     buffers: the port serves, it does not train), with ``forward``,
-    ``prefill`` and ``decode_step`` under ``torch.inference_mode``."""
+    ``encode``, ``prefill`` and ``decode_step`` under
+    ``torch.inference_mode``."""
 
     def __init__(self, cfg: ArchConfig, params):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.params_tree = _Tree(params)
 
@@ -282,17 +341,23 @@ class Transformer(nn.Module):
         return self.params_tree.tree()
 
     @torch.inference_mode()
-    def forward(self, tokens, moe_impl: str = "dense"):
-        return forward(self.params, self.cfg, tokens, moe_impl)
+    def forward(self, tokens=None, moe_impl: str = "dense", embeds=None,
+                enc_out=None):
+        return forward(self.params, self.cfg, tokens, moe_impl, embeds,
+                       enc_out)
 
     @torch.inference_mode()
-    def prefill(self, tokens, page_size: int, last_pos=None,
-                moe_impl: str = "dense"):
+    def encode(self, enc_embeds):
+        return encode(self.params, self.cfg, enc_embeds)
+
+    @torch.inference_mode()
+    def prefill(self, tokens=None, page_size: int = 256, last_pos=None,
+                moe_impl: str = "dense", embeds=None, enc_out=None):
         return prefill(self.params, self.cfg, tokens, page_size, last_pos,
-                       moe_impl)
+                       moe_impl, embeds, enc_out)
 
     @torch.inference_mode()
     def decode_step(self, cache: DecodeCache, tokens, page_size: int,
-                    attn=None):
+                    attn=None, enc_out=None):
         return decode_step(self.params, self.cfg, cache, tokens, page_size,
-                           attn)
+                           attn, enc_out)

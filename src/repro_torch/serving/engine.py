@@ -17,6 +17,12 @@ the reference's engine does.  Page 0 is reserved scratch: idle slots'
 block tables point at it, so their (ignored) decode lanes never touch a
 live page.
 
+Requests are token prompts, as in the reference's engine: an
+embedding-input model (pixtral) embeds its tokens, and an
+encoder-decoder model (seamless) is served without an encoder output,
+its ``xattn`` leaves unused.  Embeddings and encoder outputs go through
+``launch/steps.py``'s ``prefill_step``/``decode_step``.
+
 The model and KV pools live on ``device`` (``"cuda"`` unless the caller
 passes ``"cpu"``, which runs every kernel's plain version).
 """

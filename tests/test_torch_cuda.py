@@ -821,11 +821,15 @@ def _wild_merge_case(B, N, L, seed):
 #: (B, H, KVH, D, P, PPS): the reference's sweep (tests/test_kernels.py),
 #: then G = 1 with D = 80, G = 8 with D = 128, G = 2 with D = 256 (as
 #: gemma3-12b), G = 16, and a long case whose live lengths span many of
-#: the kernel's spans
+#: the kernel's spans; then seamless-m4t-medium's heads (16 over 16 KV
+#: heads, G = 1, D = 64: 16 threads a head, 16 value phases), short and
+#: over several spans, and pixtral-12b's (32 over 8, G = 4, D = 128) over
+#: several spans
 PAGED_SWEEP = [(2, 4, 2, 16, 8, 3), (4, 8, 8, 32, 16, 2), (2, 8, 2, 16, 8, 4),
                (3, 4, 4, 80, 8, 3), (2, 16, 2, 128, 16, 3),
                (2, 4, 2, 256, 16, 3), (2, 16, 1, 32, 8, 3),
-               (3, 8, 2, 64, 32, 24)]
+               (3, 8, 2, 64, 32, 24), (2, 16, 16, 64, 16, 3),
+               (3, 16, 16, 64, 32, 24), (2, 32, 8, 128, 32, 24)]
 
 
 def _paged_case(B, H, KVH, D, P, PPS, seed, NP=16, start_hi=2):
@@ -1170,7 +1174,8 @@ def test_paged_attention_kernel_rejects_bad_input(cuda, bad):
     assert build.LAUNCHES["paged_attention"] == 0
 
 
-@pytest.mark.parametrize("arch", ["qwen2p5_3b", "gemma2_27b"])
+@pytest.mark.parametrize("arch", ["qwen2p5_3b", "gemma2_27b", "pixtral_12b",
+                                  "seamless_m4t_medium"])
 def test_serving_engine_on_cuda_matches_cpu(cuda, arch):
     """The smoke-config engine on the card against the same engine on the
     CPU: with the parameters in f32 the greedy tokens, stats and page
@@ -1271,6 +1276,88 @@ def test_moe_ssm_engine_on_cuda_matches_cpu(cuda, arch):
             step.append(lg.float().cpu())
         logits.append(torch.stack(step))
     torch.testing.assert_close(logits[1], logits[0], rtol=1e-3, atol=1e-3)
+
+
+def _decode_room(layers, B, pps, room, zeros):
+    """Prefill's caches ``layers`` ({"l<i>": {kind: [n, B * pps, ...]}})
+    in pools of ``room`` pages a sequence, made by ``zeros(t, n_pages)``:
+    sequence b's pages first at b * room (identity block tables of
+    ``room`` columns).  Works on tensors and numpy arrays alike."""
+    out = {}
+    for name, c in layers.items():
+        out[name] = {}
+        for kind, t in c.items():
+            big = zeros(t, B * room)
+            for b in range(B):
+                big[:, b * room:b * room + pps] = t[:, b * pps:(b + 1) * pps]
+            out[name][kind] = big
+    return out
+
+
+@pytest.mark.parametrize("arch", ["pixtral_12b", "seamless_m4t_medium"])
+def test_encdec_steps_on_cuda_matches_cpu(cuda, arch):
+    """``launch/steps.py`` on the card against the CPU, smoke configs in
+    f32: ``prefill_step`` (pixtral from embeddings, seamless encoding
+    its frames) and 3 ``decode_step``s against its ``enc_out``, in pools
+    of ``decode_cache_abstract``'s shapes with prefill's pages copied in;
+    logits and ``enc_out`` agree to 1e-3, and paged attention launches
+    once per layer and decode step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ShapeConfig
+    cfg = get_smoke_config(arch)
+    params = sc.map_tree(lambda t: t.float(), sc.init(
+        tf.schema(cfg), torch.Generator().manual_seed(0), "cpu"))
+    B, S, P = 2, 32, 16
+    rng = np.random.default_rng(2)
+    host = {}
+    if cfg.embeds_in:
+        host["embeds"] = torch.from_numpy(
+            rng.normal(size=(B, S, cfg.d_model)).astype(np.float32))
+    else:
+        host["tokens"] = torch.from_numpy(
+            rng.integers(1, cfg.vocab, (B, S)).astype(np.int32))
+    if cfg.n_enc_layers:
+        host["enc_embeds"] = torch.from_numpy(rng.normal(
+            size=(B, S // cfg.enc_seq_divisor, cfg.d_model))
+            .astype(np.float32))
+    nxt = torch.from_numpy(rng.integers(1, cfg.vocab, (3, B, 1))
+                           .astype(np.int32))
+    spec = steps.decode_cache_abstract(
+        cfg, ShapeConfig("decode", "decode", 2 * S, B, P))
+    room, pps = spec.block_tables.shape[1], S // P
+    outs = []
+    for dev in ("cpu", cuda):
+        model = tf.Transformer(cfg, sc.map_tree(lambda t: t.to(dev),
+                                                params))
+        build.reset_launches()
+        logits, cache, enc_out = steps.prefill_step(
+            model, {k: v.to(dev) for k, v in host.items()}, P)
+        layers = _decode_room(cache.layers, B, pps, room, lambda t, n: (
+            t.new_zeros((t.shape[0], n, *t.shape[2:]))))
+        assert {n: {k: tuple(t.shape) for k, t in c.items()}
+                for n, c in layers.items()} == \
+            {n: {k: d.shape for k, d in c.items()}
+             for n, c in spec.layers.items()}
+        cache = tf.DecodeCache(layers, torch.arange(
+            B * room, dtype=torch.int32, device=dev).view(B, room),
+            cache.seq_lens)
+        rows = [logits]
+        for i in range(3):
+            lg, cache = steps.decode_step(model, cache, nxt[i].to(dev), P,
+                                          enc_out=enc_out)
+            rows.append(lg)
+        outs.append((torch.stack(rows).cpu(),
+                     None if enc_out is None else enc_out.cpu()))
+    assert build.LAUNCHES["paged_attention"] == cfg.n_layers * 3
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-3, atol=1e-3)
+    if cfg.n_enc_layers:
+        torch.testing.assert_close(outs[1][1], outs[0][1], rtol=1e-3,
+                                   atol=1e-3)
+    else:
+        assert outs[1][1] is None
 
 
 # ------------------------------------------------------------ the analysis

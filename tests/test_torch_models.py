@@ -3,8 +3,9 @@ forward, prefill and paged decode, on the reference's own parameters
 carried over by ``schema.from_numpy`` at the smoke configs of the dense
 stacks (qwen2.5; gemma2: local/global layers, a sliding window and both
 softcaps; gemma3: five local layers to one global; stablelm: MHA), the
-MoE models (olmoe, mixtral), mamba2 and the hybrid jamba, and the
-parameter schemas and counts at full size.
+MoE models (olmoe, mixtral), mamba2, the hybrid jamba, and pixtral and
+seamless from token ids, and the parameter schemas and counts at full
+size.
 
 Tolerances: with the parameters cast to f32, 1e-5 on single layers and
 1e-4 on whole-model logits (the two frameworks sum in other orders, f32
@@ -29,7 +30,6 @@ from repro.models import schema as jsc
 from repro.models import transformer as jtf
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import layers as tll
-from repro_torch.models.config import ArchConfig
 from repro_torch.models import schema as tsc
 from repro_torch.models import transformer as ttf
 
@@ -86,21 +86,26 @@ def test_schema_and_param_count_match_reference(arch):
         jget_smoke(arch).active_param_count()
 
 
-def test_unported_configs_raise():
-    """Encoders and embedding inputs wait for ROADMAP A, item 4: the two
-    configs that need them are not carried, and a config with either is
-    refused by the schema and the model."""
-    for arch in ("pixtral-12b", "seamless_m4t_medium"):
-        with pytest.raises(KeyError, match="ROADMAP A, item 4"):
-            get_config(arch)
-    # the reference's own smoke configs of the two, as the port's type
-    for arch in ("seamless_m4t_medium", "pixtral_12b"):
-        cfg = ArchConfig(**dataclasses.asdict(jget_smoke(arch)))
-        assert cfg.n_enc_layers or cfg.embeds_in
-        with pytest.raises(NotImplementedError, match="ROADMAP A, item 4"):
-            ttf.schema(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP A, item 4"):
-            ttf.Transformer(cfg, {})
+@pytest.mark.parametrize("arch", ["pixtral_12b", "seamless_m4t_medium"])
+def test_encdec_configs_equal_reference(arch):
+    """The embedding-input and encoder-decoder configs, carried: CONFIG
+    and SMOKE_CONFIG equal the reference's field for field, and at both
+    sizes the schemas (``enc_blocks``, ``enc_norm``, ``ln_x``, ``xattn``
+    included) and parameter counts match."""
+    for mine, ref in ((get_config(arch), jget_config(arch)),
+                      (get_smoke_config(arch), jget_smoke(arch))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        assert mine.n_enc_layers or mine.embeds_in
+        jflat, tflat = _flat(jtf.schema(ref)), _flat(ttf.schema(mine))
+        assert jflat.keys() == tflat.keys()
+        assert {k: jflat[k].shape for k in jflat} == \
+            {k: tflat[k].shape for k in tflat}
+        assert mine.param_count() == ref.param_count()
+        assert ttf.superblock_schema(mine).keys() == \
+            jtf.superblock_schema(ref).keys()
+    want = {"pixtral_12b": 12_247_782_400, "seamless_m4t_medium": 977_860_608}
+    assert get_config(arch).param_count() == want[arch]
+    assert get_config(arch).active_param_count() == want[arch]
 
 
 def test_from_numpy_carries_bf16_leaf_for_leaf():
@@ -179,7 +184,10 @@ def test_attention_long_prompt_must_fill_its_query_chunks():
                       q_chunk=16)
 
 
-# every carried family in f32; bf16 on the dense stacks only.  At the
+# every carried family in f32 (pixtral and seamless from tokens, without
+# an encoder output, as the engine serves them; their embeddings and
+# encoder are held in tests/test_torch_encdec.py); bf16 on the dense
+# stacks only.  At the
 # smoke widths, rounding silu in the reference's steps (sigmoid, then the
 # product) in place of one step moves the port's own bf16 mamba2 and
 # jamba logits beyond BF16_TOL: their layers are held in bf16 instead
@@ -187,7 +195,8 @@ def test_attention_long_prompt_must_fill_its_query_chunks():
 F32_ARCHS = [("qwen2p5_3b", np.float32), ("gemma2_27b", np.float32),
              ("gemma3_12b", np.float32), ("stablelm_3b", np.float32),
              ("olmoe_1b_7b", np.float32), ("mixtral_8x22b", np.float32),
-             ("mamba2_1p3b", np.float32), ("jamba_v0p1_52b", np.float32)]
+             ("mamba2_1p3b", np.float32), ("jamba_v0p1_52b", np.float32),
+             ("pixtral_12b", np.float32), ("seamless_m4t_medium", np.float32)]
 
 
 def _check_prefill(jp, jcfg, toks, last, wl, wc, gl, gc, tol,

@@ -91,7 +91,11 @@ def _serve(engine_cls, cfg, params, prompts, n_new, **kw):
     ("mamba2_1p3b", 2, 16, 6, 2, 128),
     ("mamba2_1p3b", 5, 32, 4, 2, 64),      # oversubscribed: rows reused
     ("jamba_v0p1_52b", 2, 16, 5, 2, 128),
-    ("jamba_v0p1_52b", 5, 48, 4, 2, 128)])  # oversubscribed
+    ("jamba_v0p1_52b", 5, 48, 4, 2, 128),  # oversubscribed
+    # token prompts, as the reference's engine serves both: pixtral embeds
+    # its tokens, seamless runs without an encoder output
+    ("pixtral_12b", 3, 13, 5, 2, 128),
+    ("seamless_m4t_medium", 3, 21, 5, 2, 128)])
 def test_engine_matches_reference_engine(arch, n_req, plen, n_new, batch,
                                          max_seq):
     jp, npt = reference_params(arch)

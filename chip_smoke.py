@@ -3,7 +3,7 @@
 
 Builds the port's nine CUDA kernels from the seven sources in this
 checkout (one ``nvcc`` per source, all started together), then drives eight
-main paths, the store's at the paper's node geometry (the default
+numbered paths, the store's at the paper's node geometry (the default
 ``HoneycombConfig``: 32 B keys, 16 B values, 1273-word node images), each
 with every kernel's launch count set to 0 just before it and read just
 after:
@@ -120,6 +120,33 @@ after:
    attention stay within that bound of the kernel's, and seamless with
    f32 weights give the f32 full forward's logits within
    ``ENCDEC_F32_TOL`` through prefill and decode.
+8. Training, after path 7's models are freed: qwen2.5-3b at its full
+   widths and depth (3,397,103,616 random bf16 parameters from ``--seed``,
+   f32 AdamW moments) trained 4 steps by ``TrainLoop`` over
+   ``launch/steps.train_step``: train_4k's sequence of 4,096 tokens, its
+   global batch of 256 cut to 4 (the first cut), in 4 microbatches of
+   1 x 4,096 with remat, from ``SyntheticSource``; no full-size
+   checkpoint (the second cut: parameters and optimizer state would take
+   ~34 GB on disk).  Every loss and gnorm must be finite, the parameters
+   must move and no kernel of the port may launch.  Step time, tokens/s,
+   the peak allocation, the busy share of one more step under the
+   profiler and 6 * N * tokens a step (N without the embedding table)
+   against the dense bf16 peak print as figures.
+   Then qwen2.5-3b at full widths cut to 2 layers in f32, 1 x 256 tokens
+   with labels of -1: the loss and every gradient leaf on the card
+   against the port's CPU run, and ``remat=False`` against ``remat=True``
+   on the card, within ``TRAIN_CHECK_TOL``.  Then the restart drill at
+   examples/torch_train_lm.py's size under deterministic algorithms: 20
+   steps straight against 10, a restart from the newest checkpoint and
+   10 more, every leaf equal bit for bit; the checkpoint catalog's steps,
+   floor lookups and retention against a dict model; a restored bf16 leaf
+   equal to the saved one; and the example itself as a subprocess, which
+   must print LEARNING.  The drill is the part that puts, scans and
+   deletes through the catalog's on-card ``HoneycombStore``: its counts
+   are set to 0 just before it and must read 0 after (the catalog uses
+   the store's host operations only).  The ``train`` entry of each
+   kernel's ``launches_by_path`` is the sum of the loop's and the
+   drill's, and is 0.
 
 Then each kernel is held against its plain PyTorch version on the card at
 the shapes its path gave it; the log replay also at D = 1, 32, 1,024 and
@@ -306,6 +333,23 @@ ENCDEC_TOL = {
 # against the f32 full forward, path 6's F32_TOL (the rehearsal's largest
 # f32 figure: 0.000003 at every seed)
 ENCDEC_F32_TOL = F32_TOL
+# path 8, training: qwen2.5-3b at full widths and depth, train_4k's
+# sequence of 4,096 with its global batch of 256 cut to 4 (4 microbatches
+# of 1 x 4,096, remat on), 4 steps and one more traced; no full-size
+# checkpoint (parameters and AdamW state would be ~34 GB on disk).  Then
+# the card against the CPU at full widths cut to 2 layers in f32, 1 x 256
+# tokens, within 1e-4 of each gradient leaf's largest magnitude (the
+# frameworks' f32 sums in other orders, as tests/test_torch_lm_loss.py
+# holds them); the restart drill of 20 steps at the example's size
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 4
+TRAIN_ACCUM = 4
+TRAIN_STEPS = 4
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_TOKENS = 256
+TRAIN_CHECK_TOL = 1e-4
+DRILL_STEPS = 20
 # entries of the log replay's checks against its plain version; then
 # (entries, position of the bad pair) of its rejected calls
 REPLAY_CHECK_D = (1, 29, 1000, 4000)
@@ -353,18 +397,37 @@ def cuda_ms(fns: list, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+# Idle time traced before and after the window.  The profiler keeps only
+# the device activities inside its capture range, and it places them on
+# the host's clock; that placement has been seen shifted earlier by
+# milliseconds, so the first launches of an unguarded trace fell before
+# the range and were lost (scripts/torch_profiler_drops.py measures it).
+TRACE_GUARD_S = 0.05
+
+
+def device_events_raw(fn, guard_s: float = TRACE_GUARD_S):
+    """Run ``fn`` under torch.profiler, inside a ``smoke_window``
+    annotation, and return the trace's events.  The trace opens
+    ``guard_s`` before the window, with the device idle, and closes as
+    long after it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(guard_s)
+        with record_function("smoke_window"):
+            fn()
+            torch.cuda.synchronize()
+        time.sleep(guard_s)
+    return prof.events()
+
+
 def device_events(fn):
     """Run ``fn`` under torch.profiler.  Returns the (name, microseconds)
     of every device activity (kernel, copy, set) it caused, and the
     microseconds of the whole window on the host's clock."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function("smoke_window"):
-            fn()
-            torch.cuda.synchronize()
-    evs = prof.events()
+    evs = device_events_raw(fn)
     window = next(e.time_range.elapsed_us() for e in evs
                   if e.name == "smoke_window")
     # the window's own annotation is mirrored onto the device's timeline
@@ -392,9 +455,10 @@ def device_ms(fns: list, reps: int, match: str, flush: torch.Tensor,
     ``match``, ``per_call`` launches per call, cycling through ``fns``,
     from the profiler's trace.  ``flush`` (larger than the 50 MB L2) is
     overwritten before each call, because the main path finds its data
-    cold.  The host's work around the launches is left out.  The profiler
-    drops some device events in a process that takes many traces: a trace
-    holding fewer than ``min_traced`` of the launches is taken again, up
+    cold.  The host's work around the launches is left out.  Should the
+    profiler still lose device events (``device_events_raw`` guards the
+    trace's ends against the loss seen so far), a trace holding fewer
+    than ``min_traced`` of the launches is taken again, up
     to ``tries`` traces, each retake half as long as the trace before (at
     least 16 calls: drops have held traces of 64 launches to 52 three
     times in a row; a figure from a retake is announced on a line of its
@@ -591,6 +655,11 @@ def main() -> int:
                                + [x["max_abs_err"] for x in encdec_shapes])
     print(f"encoder-decoder path with its checks and timings: "
           f"{time.perf_counter() - t0:.3f} s")
+    print("== training: qwen2.5-3b at full size, the card against the CPU, "
+          "the restart drill ==")
+    t0 = time.perf_counter()
+    train_launches = training_path(args, dev, card)
+    print(f"training path with its checks: {time.perf_counter() - t0:.3f} s")
     print("== kernel check: every entry point of kernels/ops.py ==")
     t0 = time.perf_counter()
     kernel_check_phase(dev)
@@ -604,7 +673,9 @@ def main() -> int:
                    "live_smokes": live_launches[k["name"]],
                    "serving": serve_launches[k["name"]],
                    "serving_moe_ssm": moe_ssm_launches[k["name"]],
-                   "serving_encdec": encdec_launches[k["name"]]}
+                   "serving_encdec": encdec_launches[k["name"]],
+                   "train": train_launches[k["name"]]}
+        check(by_path["train"] == 0, f"{k['name']} launched in training")
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
         check(k["launches"] > 0, f"{k['name']} never launched")
@@ -2574,11 +2645,11 @@ def serving_path(args, dev, flush):
                         seed=args.seed, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    held = sum(t.numel() for t in sc.leaves(eng.model.params))
+    held = sum(t.numel() for t in sc.flatten(eng.model.params))
     param_bytes = sum(t.numel() * t.element_size()
-                      for t in sc.leaves(eng.model.params))
+                      for t in sc.flatten(eng.model.params))
     pool_bytes = sum(t.numel() * t.element_size()
-                     for t in sc.leaves(eng.pools))
+                     for t in sc.flatten(eng.pools))
     check(held == n_params, f"the engine holds {held} parameters, the "
           f"schema counts {n_params}")
     print(f"qwen2.5-3b: {cfg.n_layers} layers, d {cfg.d_model}, "
@@ -3096,7 +3167,7 @@ def serve_moe_ssm(args, dev, flush, arch, layers, want_params, want_active):
                         page_size=P, seed=args.seed, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    weights = sc.leaves(eng.model.params)
+    weights = sc.flatten(eng.model.params)
     held = sum(t.numel() for t in weights)
     check(held == n_params, f"{arch}: the engine holds {held} parameters, "
           f"the schema counts {n_params}")
@@ -3612,7 +3683,7 @@ def serve_encdec_model(args, dev, flush, arch, want_params):
     model = tf.Transformer(cfg, sc.init(tf.schema(cfg), gen, dev))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    weights = sc.leaves(model.params)
+    weights = sc.flatten(model.params)
     held = sum(t.numel() for t in weights)
     check(held == n_params, f"{arch}: the model holds {held} parameters, "
           f"the schema counts {n_params}")
@@ -3639,7 +3710,7 @@ def serve_encdec_model(args, dev, flush, arch, want_params):
     cache, enc_out, served = run["cache"], run["enc_out"], run["served"]
     steps_n = new - 1
     pool_bytes = sum(t.numel() * t.element_size()
-                     for t in sc.leaves(cache.layers))
+                     for t in sc.flatten(cache.layers))
     check(launches["paged_attention"] == cfg.n_layers * steps_n,
           f"{arch}: {launches['paged_attention']} paged_attention launches "
           f"for {steps_n} decode steps of {cfg.n_layers} layers")
@@ -3712,6 +3783,353 @@ def serve_encdec_model(args, dev, flush, arch, want_params):
               f"logits differ from the full forward by {drift:.6f}")
         del model
     return launches, shape
+
+
+def training_path(args, dev, card: str):
+    """Path 8: the one-device training path, run after path 7's models
+    are freed.  (a) qwen2.5-3b at full widths and depth (random bf16
+    weights from ``--seed``) trained ``TRAIN_STEPS`` steps by
+    ``TrainLoop`` over ``steps.train_step`` with ``TRAIN_ACCUM``
+    microbatches of 1 x 4,096 tokens (remat on) from ``SyntheticSource``,
+    every launch count set to 0 just before the loop; (b) the loss and
+    every gradient leaf on the card against the port's own CPU run, and
+    ``remat=False`` against ``remat=True`` on the card
+    (``train_card_vs_cpu``); (c) the restart drill, the checkpoint
+    catalog and the example (``restart_drill``).  Returns the launch
+    counts of (a)'s loop and (c)'s drill summed, each window opened with
+    every count set to 0; all must be 0, since the training path runs no
+    kernel of the port and the checkpoint catalog uses the store's host
+    operations only."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory before path 8: {torch.cuda.memory_allocated()} B "
+          f"allocated; peak of the run so far "
+          f"{torch.cuda.max_memory_allocated()} B")
+    t0 = time.perf_counter()
+    launches = train_full_size(args, dev, card)
+    print(f"  full-size training with its checks: "
+          f"{time.perf_counter() - t0:.3f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_card_vs_cpu(args, dev)
+    print(f"  card against CPU: {time.perf_counter() - t0:.3f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    drill = restart_drill(args, dev)
+    print(f"  restart drill and example: {time.perf_counter() - t0:.3f} s")
+    return {k: v + drill[k] for k, v in launches.items()}
+
+
+def train_full_size(args, dev, card: str) -> dict:
+    """Path 8 (a).  Checks: the parameter count is the reference's, every
+    logged loss and gnorm is finite, the parameters moved, no kernel of
+    the port launched.  Prints, as figures and not claims: each step's
+    loss, gnorm and host-clock time, tokens/s and step time over the steps
+    after the first, the peak allocation, the device's busy share of one
+    more step traced by the profiler, and 6 * N * tokens per step over the
+    step time against the card's dense bf16 peak, N without the embedding
+    table (a lookup, no product; ``lm_head`` is a leaf of its own and
+    counts), with attention's own products and the recompute left out of
+    the numerator too."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.train_loop import LoopConfig, TrainLoop
+
+    cfg = get_config(TRAIN_ARCH)
+    n_params = cfg.param_count()
+    check(n_params == QWEN_PARAMS, f"{TRAIN_ARCH}: {n_params} parameters by "
+          f"the port's schema, the reference counts {QWEN_PARAMS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = sc.init(tf.schema(cfg), gen, dev)
+    state = opt.init(params)
+    sync(dev)
+    held = sum(t.numel() for t in sc.flatten(params))
+    check(held == n_params, f"{TRAIN_ARCH}: {held} parameters held")
+    state_b = sum(t.numel() * t.element_size()
+                  for t in sc.flatten((params, state)))
+    print(f"{TRAIN_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab}; {n_params} bf16 parameters and their f32 AdamW "
+          f"moments ({state_b} B) drawn on the card in "
+          f"{time.perf_counter() - t0:.3f} s; global batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} (train_4k's 256 cut to {TRAIN_BATCH}), "
+          f"{TRAIN_ACCUM} microbatches, remat on")
+    probe = [params["lm_head"][:64, :64], params["embed"][:64, :64],
+             params["blocks"]["l0"]["attn"]["wq"][-1, :64, :64],
+             params["final_norm"]["scale"]]
+    before = [t.detach().clone() for t in probe]
+    opt_cfg = opt.AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS + 1)
+
+    def step_fn(p, o, b):
+        return steps.train_step(p, o, b, cfg, opt_cfg, accum=TRAIN_ACCUM)
+    pipe = DataPipeline(SyntheticSource(cfg.vocab, seed=args.seed),
+                        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = TrainLoop(step_fn, params, state, pipe,
+                         CheckpointManager(tmp, device=dev),
+                         LoopConfig(total_steps=TRAIN_STEPS,
+                                    ckpt_every=10 ** 9,
+                                    log_every=1))
+        try:
+            # ---- the main path, every launch count set to 0 just before
+            build.reset_launches()
+            t0 = time.perf_counter()
+            loop.run()
+            run_s = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            events, window_us = device_events(lambda: loop.run(steps=1))
+        finally:
+            pipe.close()
+        check(loop.ckpt.all_steps() == [], "a full-size checkpoint was saved")
+    log = loop.metrics_log
+    for m in log:
+        print(f"  step {m['step']}: loss {m['loss']:.4f}, gnorm "
+              f"{m['gnorm']:.4f}, {m['step_time_s'] * 1e3:.1f} ms (host "
+              f"clock), starvations {m['starvations']}")
+    check(len(log) == TRAIN_STEPS + 1 and all(
+        np.isfinite(m["loss"]) and np.isfinite(m["gnorm"]) for m in log),
+        f"{TRAIN_ARCH}: losses and gnorms {log}")
+    moved = [float((a.float() - b.detach().float()).abs().max())
+             for a, b in zip(before, probe)]
+    check(all(x > 0 for x in moved), f"parameters did not move: {moved}")
+    check(not any(launches.values()), f"path 8 launched a kernel of the "
+          f"port: {launches}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    later = [m["step_time_s"] for m in log[1:TRAIN_STEPS]]
+    step_s = statistics.median(later)
+    busy_us = sum(t for _, t in events)
+    n_matmul = n_params - params["embed"].numel()
+    flops = 6 * n_matmul * tokens
+    print(f"  {TRAIN_STEPS} steps in {run_s:.3f} s; first step "
+          f"{log[0]['step_time_s'] * 1e3:.1f} ms; median of steps 2-"
+          f"{TRAIN_STEPS} {step_s * 1e3:.1f} ms (host clock), "
+          f"{tokens / step_s:.1f} tokens/s; peak allocation {peak} B of "
+          f"{torch.cuda.get_device_properties(0).total_memory} B; device busy "
+          f"{busy_us / window_us:.4f} of one traced step ({busy_us:.1f} of "
+          f"{window_us:.1f} us, {len(events)} device activities); "
+          f"6*N*tokens (N = {n_matmul} without the embedding) = "
+          f"{flops:.4e} FLOP a step, {flops / step_s / 1e12:.2f} "
+          f"TFLOP/s, {flops / step_s / BF16_FLOPS:.4f} of the dense bf16 "
+          f"peak; parameters moved by up to {max(moved):.3e}; launches "
+          f"{launches}; card {card}")
+    print_activities(events, f"{TRAIN_ARCH} training step", top=8)
+    print(json.dumps({"training": {
+        "arch": TRAIN_ARCH, "params": n_params,
+        "params_without_embedding": n_matmul, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "accum": TRAIN_ACCUM, "steps": TRAIN_STEPS,
+        "losses": [m["loss"] for m in log],
+        "gnorms": [m["gnorm"] for m in log],
+        "step_ms": [m["step_time_s"] * 1e3 for m in log],
+        "median_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "peak_allocated_bytes": peak,
+        "busy_share": busy_us / window_us,
+        "model_flops_share": flops / step_s / BF16_FLOPS, "card": card}}))
+    del loop, params, state, probe, before
+    return launches
+
+
+def train_card_vs_cpu(args, dev) -> None:
+    """Path 8 (b): qwen2.5-3b at full widths cut to ``TRAIN_CHECK_LAYERS``
+    layers, f32 weights drawn on the host, 1 x ``TRAIN_CHECK_TOKENS``
+    tokens whose labels hold -1s: ``steps.loss_and_grads`` on the card
+    against the same on the CPU, and on the card with ``remat=False``
+    against ``remat=True``; the loss and every gradient leaf within
+    ``TRAIN_CHECK_TOL`` of the leaf's largest magnitude (TF32 off: the
+    card's f32 products in full f32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CHECK_LAYERS)
+    schema32 = sc.map_tree(lambda d: dataclasses.replace(
+        d, dtype=torch.float32), tf.schema(cfg))
+    params = sc.init(schema32, torch.Generator().manual_seed(args.seed),
+                     "cpu")
+    rng = np.random.default_rng(args.seed)
+    S = TRAIN_CHECK_TOKENS
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (1, S)).astype(np.int32)),
+        "labels": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (1, S)).astype(np.int32))}
+    batch["labels"][0, :S // 8] = -1
+    batch["labels"][0, -1] = -1
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        cpu = steps.loss_and_grads(params, cfg, batch)
+        cpu_s = time.perf_counter() - t0
+        on_card = sc.map_tree(lambda t: t.detach().to(dev), params)
+        card_b = {k: v.to(dev) for k, v in batch.items()}
+        runs = {}
+        for remat in (True, False):
+            torch.cuda.reset_peak_memory_stats()
+            sync(dev)
+            t0 = time.perf_counter()
+            loss, grads = steps.loss_and_grads(on_card, cfg, card_b,
+                                               remat=remat)
+            sync(dev)
+            runs[remat] = (loss, grads, time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+    def worst(want, got) -> float:
+        return max(float((a.to(dev) - b).abs().max())
+                   / max(float(a.abs().max()), 1e-30)
+                   for a, b in zip(want, got))
+    loss_cpu, grads_cpu = cpu
+    loss_card, grads_card, card_s, _ = runs[True]
+    vs_cpu = worst(grads_cpu, grads_card)
+    vs_remat = worst(grads_card, runs[False][1])
+    loss_err = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    bitwise = all(torch.equal(a, b) for a, b in zip(grads_card,
+                                                    runs[False][1]))
+    print(f"  {TRAIN_ARCH} at full widths, {TRAIN_CHECK_LAYERS} layers, f32, "
+          f"1 x {S} tokens ({int((batch['labels'] < 0).sum())} labels -1): "
+          f"loss {float(loss_card):.6f} on the card, {float(loss_cpu):.6f} "
+          f"on the CPU (relative {loss_err:.2e}); worst gradient leaf "
+          f"{vs_cpu:.2e} of its max against the CPU, remat=False against "
+          f"remat=True {vs_remat:.2e} (bit for bit: {bitwise}); tolerance "
+          f"{TRAIN_CHECK_TOL}; {len(grads_card)} leaves; card "
+          f"{card_s * 1e3:.1f} ms with remat ({runs[True][3]} B peak), "
+          f"{runs[False][2] * 1e3:.1f} ms without ({runs[False][3]} B "
+          f"peak); CPU {cpu_s:.3f} s")
+    check(loss_err <= TRAIN_CHECK_TOL, f"card loss {float(loss_card)} vs "
+          f"CPU {float(loss_cpu)}")
+    check(vs_cpu <= TRAIN_CHECK_TOL, f"card gradients vs CPU: {vs_cpu:.3e}")
+    check(abs(float(runs[False][0]) - float(loss_card))
+          <= TRAIN_CHECK_TOL * abs(float(loss_card))
+          and vs_remat <= TRAIN_CHECK_TOL,
+          f"remat=False vs remat=True on the card: {vs_remat:.3e}")
+
+
+def restart_drill(args, dev) -> dict:
+    """Path 8 (c), at examples/torch_train_lm.py's size (4 layers, d 128,
+    d_ff 256, vocab 512, batch 16 x 64) under
+    ``torch.use_deterministic_algorithms(True)`` (the embedding's and the
+    gather's backward accumulate by sorting, not by atomics): 20 steps
+    straight with a checkpoint every 10, against 10 steps, then a fresh
+    loop that ``restore_latest()``s and runs 10 more; every leaf of the
+    parameters and the optimizer state must be equal bit for bit.
+    ``CUBLAS_WORKSPACE_CONFIG`` is set for the phase because deterministic
+    mode refuses cuBLAS calls without it, but the cuBLAS handles that
+    paths 4-7 made keep the workspace they were given: the products'
+    bit equality between the runs is observed on the card, not
+    guaranteed by the variable.  The catalog's
+    ``all_steps``, ``latest_step`` at every step 0-25 and its retention
+    (keep 2) against a dict model; a checkpoint restored from the card
+    equals the leaves it saved bit for bit.  Every launch count is set to
+    0 just before the three loops and read after the catalog's checks;
+    returns those counts.  Last, the example runs as a subprocess and must
+    print LEARNING."""
+    import os
+    import tempfile
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import build
+    from repro_torch.models import schema as sc
+    from repro_torch.train.train_loop import LoopConfig, build_smoke_loop
+    cfg = dataclasses.replace(get_smoke_config("qwen2p5_3b"), n_layers=4,
+                              d_model=128, d_ff=256, vocab=512)
+    lc = LoopConfig(total_steps=DRILL_STEPS, ckpt_every=DRILL_STEPS // 2,
+                    log_every=5)
+    env_was = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def loop(name, seed=args.seed):
+                return build_smoke_loop(cfg, batch=16, seq=64,
+                                        ckpt_dir=Path(tmp) / name,
+                                        loop_cfg=lc, device=dev, seed=seed)
+            build.reset_launches()
+            t0 = time.perf_counter()
+            a = loop("a")
+            try:
+                a.run()
+            finally:
+                a.pipeline.close()
+            b = loop("b")
+            try:
+                b.run(steps=DRILL_STEPS // 2)
+            finally:
+                b.pipeline.close()
+            c = loop("b", seed=args.seed + 1)
+            try:
+                check(c.restore_latest() and c.step == DRILL_STEPS // 2,
+                      f"restore_latest gave step {c.step}")
+                c.run(steps=DRILL_STEPS // 2)
+            finally:
+                c.pipeline.close()
+            drill_s = time.perf_counter() - t0
+            la = sc.flatten((a.params, a.opt_state))
+            lcc = sc.flatten((c.params, c.opt_state))
+            differ = sum(not torch.equal(x, y) for x, y in zip(la, lcc))
+            check(len(la) == len(lcc) and differ == 0,
+                  f"{differ} of {len(la)} leaves differ after the restart")
+            # the catalog against a dict model of saves and retention
+            model = {}
+            for s in range(lc.ckpt_every, DRILL_STEPS + 1, lc.ckpt_every):
+                model[s] = True
+                model = dict(sorted(model.items())[-2:])
+            floors = {q: a.ckpt.latest_step(q) for q in range(26)}
+            want = {q: max((s for s in model if s <= q), default=None)
+                    for q in range(26)}
+            check(a.ckpt.all_steps() == sorted(model) and floors == want
+                  and a.ckpt.latest_step() == max(model),
+                  f"catalog {a.ckpt.all_steps()} {floors}, model {want}")
+            (p, st), manifest = a.ckpt.restore(DRILL_STEPS, (a.params,
+                                                             a.opt_state))
+            saved = sc.flatten((p, st))
+            bf16 = [x for x in saved if x.dtype == torch.bfloat16]
+            check(all(torch.equal(x, y) for x, y in zip(la, saved))
+                  and len(bf16) > 0
+                  and all(x.device == la[0].device for x in saved),
+                  "a restored leaf differs from the saved one")
+            launches = dict(build.LAUNCHES)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env_was is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env_was
+    print(f"  restart drill: {DRILL_STEPS} steps straight vs "
+          f"{DRILL_STEPS // 2} + restore + {DRILL_STEPS // 2}, {len(la)} "
+          f"leaves equal bit for bit (deterministic algorithms), "
+          f"{drill_s:.3f} s for the three loops; losses "
+          f"{[round(m['loss'], 4) for m in a.metrics_log]}; catalog "
+          f"{a.ckpt.all_steps()}, latest_step(15) = {floors[15]}; the "
+          f"step-{DRILL_STEPS} checkpoint ({manifest['n_leaves']} leaves, "
+          f"{len(bf16)} bf16) restored onto the card bit for bit; "
+          f"launches in the drill {launches}")
+    check(not any(launches.values()), f"the restart drill launched a "
+          f"kernel of the port: {launches}")
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, str(root / "examples" / "torch_train_lm.py")],
+        capture_output=True, text=True, timeout=600, cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    lines = run.stdout.strip().splitlines()
+    for line in lines:
+        print(f"  example: {line}")
+    check(run.returncode == 0 and any("(LEARNING)" in x for x in lines),
+          f"examples/torch_train_lm.py exited {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    print(f"  example: {time.perf_counter() - t0:.3f} s as a subprocess")
+    return launches
 
 
 if __name__ == "__main__":

@@ -14,26 +14,27 @@ from ``tokens`` or ``embeds`` with ``enc_out``; ``decode_step`` runs one
 token for the batch against that ``enc_out``.  Both take a
 ``models.transformer.Transformer`` on the device of its parameters.
 
-Not carried: ``build_step``'s mesh, shardings and ``BuiltStep``, the
-MoE variants ``ep_ragged``/``fsliced`` and ``paged_attention_local``
-(all ``shard_map`` over a mesh: ROADMAP A, item 6), and the train branch
-(ROADMAP A, item 5).
+``train_step`` is the train branch of the reference's ``build_step`` on
+one device: the batch in ``accum`` microbatches, each microbatch's loss
+and gradients (``loss_and_grads``) summed into f32 buffers, their mean
+through AdamW (``train/optimizer.update``, in place).
+
+Not carried: ``build_step``'s mesh, shardings, ``BuiltStep`` and buffer
+donation, the MoE variants ``ep_ragged``/``fsliced`` and
+``paged_attention_local`` (all ``shard_map`` over a mesh: ROADMAP A,
+item 6).
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any
 
 import torch
 
 from ..models import schema as sc
+from ..models.schema import Spec
 from ..models import transformer as tf
 from ..models.config import ArchConfig, ShapeConfig
-
-
-class Spec(NamedTuple):
-    """An input's shape and dtype (the reference's ShapeDtypeStruct)."""
-    shape: tuple[int, ...]
-    dtype: torch.dtype
+from ..train import optimizer as opt
 
 
 def _specs(tree):
@@ -107,3 +108,52 @@ def decode_step(model: tf.Transformer, cache: tf.DecodeCache, tokens,
     Returns (logits [B, V], DecodeCache with seq_lens + 1)."""
     return model.decode_step(cache, tokens, page_size, attn,
                              enc_out=enc_out)
+
+
+# --------------------------------------------------------------- train step
+def loss_and_grads(params, cfg: ArchConfig, batch: dict,
+                   moe_impl: str = "dense", remat: bool = True):
+    """``lm_loss`` and its gradient for every leaf of ``params`` (each in
+    the leaf's dtype, zeros for a leaf the batch does not reach, such as
+    ``embed`` under ``embeds``), in ``schema.flatten``'s order.  Marks the
+    leaves as requiring grad.  Returns (loss, [grad])."""
+    leaves = sc.flatten(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = tf.lm_loss(params, cfg, batch, moe_impl=moe_impl, remat=remat)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), list(grads)
+
+
+def train_step(params, opt_state: opt.OptState, batch: dict,
+               cfg: ArchConfig, opt_cfg: opt.AdamWConfig, accum: int = 4,
+               moe_impl: str = "dense"):
+    """One optimizer step over a global batch (numpy arrays or tensors;
+    moved to the parameters' device).  With ``accum`` microbatches (1
+    when ``accum`` does not divide the batch), each one's gradients, in
+    the parameters' dtype, are summed into f32 buffers and divided by
+    ``accum``, as the reference's ``gsum``; the loss is the microbatches'
+    mean.  Parameters and optimizer state are updated in place.
+    Returns (params, OptState, {"loss", "gnorm"})."""
+    device = sc.flatten(params)[0].device
+    batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    B = next(iter(batch.values())).shape[0]
+    accum = accum if B % accum == 0 else 1
+    mb = B // accum
+    gsum = [torch.zeros(t.shape, dtype=torch.float32, device=device)
+            for t in sc.flatten(params)]
+    losses = []
+    for i in range(accum):
+        micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        loss, grads = loss_and_grads(params, cfg, micro, moe_impl)
+        for a, g in zip(gsum, grads):
+            a.add_(g.to(torch.float32))
+        losses.append(loss)
+        del grads
+    for a in gsum:
+        a.div_(accum)
+    params, opt_state, gnorm = opt.update(
+        opt_cfg, sc.unflatten(params, gsum), opt_state, params)
+    return params, opt_state, {"loss": torch.stack(losses).mean(),
+                               "gnorm": gnorm}

@@ -19,10 +19,13 @@ differently, so each is held to the reference's same implementation.
 Router: softmax over the expert logits in f32, top-k, renormalised (the
 mixtral formulation; olmoe normalises the same way).
 
-Not ported: ``_ragged_ffn`` and its custom VJP (exact ragged gradients,
-which matter only for training, ROADMAP A, item 5), and
-``moe_ep_ragged``/``moe_fsliced_ragged`` (``shard_map`` over a device
-mesh, ROADMAP A, item 6).
+Both train: ``moe_ragged``'s gradients are autograd's through its
+slices, held to the reference's ragged gradients
+(tests/test_torch_lm_loss.py).
+
+Not ported: ``moe_ep_ragged``/``moe_fsliced_ragged`` (``shard_map`` over
+a device mesh) and ``_ragged_ffn`` with its custom VJP, whose only
+callers they are (ROADMAP A, item 6).
 """
 from __future__ import annotations
 

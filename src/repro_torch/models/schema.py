@@ -7,6 +7,11 @@ A model declares its parameters once as a nested dict of ``ParamDef``;
 (a nested dict of numpy arrays) into the port leaf for leaf.  The
 reference's logical sharding axes and mesh specs are not ported: the port
 runs on one card.
+
+Trees are nested dicts of leaves; the training state adds tuples (the
+optimizer's ``OptState``).  ``flatten``/``unflatten`` walk them in
+``jax.tree.flatten``'s order (dict keys sorted), which the reference's
+checkpoints and its gradient norm follow.
 """
 from __future__ import annotations
 
@@ -24,27 +29,62 @@ class ParamDef:
     init: str = "normal"                  # normal | zeros | ones | embed
 
 
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """An array's shape and dtype (the reference's ShapeDtypeStruct); a
+    leaf of a tree, not a tuple."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
 def stack(n: int, tree):
     """Prepend a stacked-layers dimension to every ParamDef in a tree."""
     return map_tree(lambda d: ParamDef((n, *d.shape), d.dtype, d.init), tree)
 
 
-def map_tree(fn, tree):
-    """Apply ``fn`` to the leaves of nested dicts, keeping the structure."""
+def map_tree(fn, tree, *rest):
+    """Apply ``fn`` to the leaves of nested dicts, keeping the structure;
+    with more trees of the same structure, ``fn`` takes their leaves too."""
     if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
-def leaves(tree) -> list:
-    """The leaves of nested dicts."""
+def flatten(tree) -> list:
+    """The leaves in ``jax.tree.flatten``'s order: dict keys sorted,
+    tuples (named or not) and lists in order, None holding no leaf."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in leaves(v)]
-    return [tree]
+        return [x for k in sorted(tree) for x in flatten(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in flatten(v)]
+    return [] if tree is None else [tree]
+
+
+def unflatten(like, leaves):
+    """``leaves`` (in ``flatten``'s order) in the structure of ``like``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*map(build, t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(map(build, t))
+        return None if t is None else next(it)
+    try:
+        out = build(like)
+    except StopIteration:
+        raise ValueError("fewer leaves than the structure holds") from None
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure holds")
+    return out
 
 
 def n_params(tree) -> int:
-    return sum(math.prod(d.shape) for d in leaves(tree))
+    return sum(math.prod(d.shape) for d in flatten(tree))
 
 
 def init(tree, generator: torch.Generator, device):

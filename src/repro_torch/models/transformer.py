@@ -25,6 +25,11 @@ Decode is paged: each attention layer has a KV page pool indexed by block
 tables that come from Honeycomb GETs (``serving/kv_cache.py``); each
 mamba layer has its recurrent state and conv tail at the request's slot
 row.  The reference keeps no cross-attention cache, nor does the port.
+
+Training: ``lm_loss`` runs the full forward over the parameter tree (no
+caches built) and its cross entropy; with ``remat`` (its default, as in
+the reference) each superblock and each encoder layer runs under
+activation checkpointing, the reference's ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as ll
 from . import mamba2 as mm
@@ -110,9 +116,13 @@ def moe_param_count(cfg: ArchConfig) -> int:
     return per_layer * n_moe_layers
 
 
-def _at(tree, i: int):
-    """Superblock ``i`` of a stacked tree (views)."""
-    return map_tree(lambda t: t[i], tree)
+def _unstack(tree, n: int) -> list:
+    """All ``n`` superblocks of a stacked tree (views), one ``unbind`` a
+    leaf.  Under autograd its backward stacks the n gradients into the
+    leaf's once, where n indexings ``t[i]`` would each add a zero-filled
+    gradient of the whole stacked leaf (n passes over it)."""
+    per = map_tree(lambda t: t.unbind(0), tree)
+    return [map_tree(lambda u: u[i], per) for i in range(n)]
 
 
 # ----------------------------------------------------------------- forward
@@ -134,16 +144,22 @@ def _xattn(p, x, cfg: ArchConfig, kind: str, enc_out):
 
 
 def _layer(p, x, cfg: ArchConfig, kind: str, ffn: str | None,
-           moe_impl="dense", last_pos=None, enc_out=None):
+           moe_impl="dense", last_pos=None, enc_out=None,
+           build_cache=True):
     """One layer over a whole sequence: (x, cache), the cache (k, v) of an
     attention layer or the ``MambaState`` after ``last_pos`` [B] (the last
-    position when None) of a mamba layer."""
+    position when None) of a mamba layer; None with ``build_cache=False``
+    (the full forward and training, which build no mamba state)."""
     h = ll.rmsnorm(p["ln1"], x)
-    if kind == "M":
+    cache = None
+    if kind == "M" and not build_cache:
+        y = mm.mamba_block(p["mamba"], h, cfg)
+    elif kind == "M":
         y, cache = mm.mamba_block(p["mamba"], h, cfg, return_state=True,
                                   last_pos=last_pos)
     else:
-        y, cache = ll.attention(p["attn"], h, cfg, local=(kind == "L"))
+        y, kv = ll.attention(p["attn"], h, cfg, local=(kind == "L"))
+        cache = kv if build_cache else None
     x = _xattn(p, x + y, cfg, kind, enc_out)
     return _ffn(p, x, cfg, ffn, moe_impl), cache
 
@@ -164,34 +180,76 @@ def _logits(params, cfg: ArchConfig, x):
     return logits
 
 
+def _run_layers(x, n: int, layer, remat: bool):
+    """``x`` through ``layer(x, i)`` for i in 0 .. n-1; with ``remat`` each
+    call runs under activation checkpointing (its activations recomputed
+    in the backward pass), as the reference wraps its scanned body in
+    ``jax.checkpoint``."""
+    for i in range(n):
+        x = checkpoint(layer, x, i, use_reentrant=False) if remat \
+            else layer(x, i)
+    return x
+
+
 def forward(params, cfg: ArchConfig, tokens=None, moe_impl: str = "dense",
-            embeds=None, enc_out=None):
+            embeds=None, enc_out=None, remat: bool = False):
     """Full forward over ``tokens`` [B, S] (or ``embeds`` [B, S, d]),
     cross-attending to ``enc_out`` [B, Senc, d] where given -> logits
-    [B, S, V] (f32)."""
-    x = _embed(params, tokens, embeds)
+    [B, S, V] (f32).  ``remat`` recomputes each superblock in the
+    backward pass."""
     kinds = layer_kinds(cfg)
-    for i in range(cfg.n_superblocks):
-        blk = _at(params["blocks"], i)
+    blocks = _unstack(params["blocks"], cfg.n_superblocks)
+
+    def superblock(x, i):
+        blk = blocks[i]
         for j, (kind, ffn) in enumerate(kinds):
             x, _ = _layer(blk[f"l{j}"], x, cfg, kind, ffn, moe_impl,
-                          enc_out=enc_out)
+                          enc_out=enc_out, build_cache=False)
+        return x
+    x = _run_layers(_embed(params, tokens, embeds), cfg.n_superblocks,
+                    superblock, remat)
     return _logits(params, cfg, x)
 
 
-def encode(params, cfg: ArchConfig, enc_embeds):
+def encode(params, cfg: ArchConfig, enc_embeds, remat: bool = False):
     """The encoder stack over ``enc_embeds`` [B, Senc, d] (cast to
     ``lm_head``'s dtype): per layer RMSNorm, bidirectional self-attention
     through the cross-attention primitive (no RoPE, no mask), the
-    residual, the MLP; ``enc_norm`` last.  Returns [B, Senc, d]."""
-    x = enc_embeds.to(params["lm_head"].dtype)
-    for i in range(cfg.n_enc_layers):
-        p = _at(params["enc_blocks"], i)
+    residual, the MLP; ``enc_norm`` last.  Returns [B, Senc, d].
+    ``remat`` recomputes each layer in the backward pass."""
+    layers = _unstack(params["enc_blocks"], cfg.n_enc_layers)
+
+    def layer(x, i):
+        p = layers[i]
         h = ll.rmsnorm(p["ln1"], x)
         x = x + ll.cross_attention(p["attn"], h, h, cfg)
         h = ll.rmsnorm(p["ln2"], x)
-        x = x + ll.mlp(p["mlp"], h)
+        return x + ll.mlp(p["mlp"], h)
+    x = _run_layers(enc_embeds.to(params["lm_head"].dtype),
+                    cfg.n_enc_layers, layer, remat)
     return ll.rmsnorm(params["enc_norm"], x)
+
+
+def lm_loss(params, cfg: ArchConfig, batch, moe_impl: str = "dense",
+            remat: bool = True):
+    """Next-token cross entropy, the mean over positions whose label is
+    >= 0.  ``batch``: {"tokens" | "embeds", "labels", ["enc_embeds"]}
+    (tensors on the parameters' device).
+
+    CE as logsumexp - gold logit, with no second [B, S, V] log-probability
+    array beside the logits.  A negative label reads the gold logit at
+    its index modulo V, as the reference's ``take_along_axis`` wraps -1
+    to the last entry; the mask then zeroes its term."""
+    enc_out = None
+    if cfg.n_enc_layers:
+        enc_out = encode(params, cfg, batch["enc_embeds"], remat=remat)
+    logits = forward(params, cfg, batch.get("tokens"), moe_impl,
+                     batch.get("embeds"), enc_out, remat=remat)
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, (labels % cfg.vocab)[..., None])[..., 0]
+    mask = (labels >= 0).to(F32)
+    return ((lse - gold) * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 class DecodeCache(NamedTuple):
@@ -225,8 +283,7 @@ def prefill(params, cfg: ArchConfig, tokens=None, page_size: int = 256,
     kinds = layer_kinds(cfg)
     caches: dict[str, dict[str, list]] = {f"l{j}": {}
                                           for j in range(len(kinds))}
-    for i in range(cfg.n_superblocks):
-        blk = _at(params["blocks"], i)
+    for blk in _unstack(params["blocks"], cfg.n_superblocks):
         for j, (kind, ffn) in enumerate(kinds):
             x, c = _layer(blk[f"l{j}"], x, cfg, kind, ffn, moe_impl, idx,
                           enc_out)
@@ -287,9 +344,9 @@ def decode_step(params, cfg: ArchConfig, cache: DecodeCache, tokens,
     x = params["embed"][tokens.long()]
     bt, lens = cache.block_tables, cache.seq_lens
     kinds = layer_kinds(cfg)
-    for i in range(cfg.n_superblocks):
-        blk = _at(params["blocks"], i)
-        pools = _at(cache.layers, i)
+    n = cfg.n_superblocks
+    for blk, pools in zip(_unstack(params["blocks"], n),
+                          _unstack(cache.layers, n)):
         for j, (kind, ffn) in enumerate(kinds):
             p, c = blk[f"l{j}"], pools[f"l{j}"]
             h = ll.rmsnorm(p["ln1"], x)
@@ -326,10 +383,11 @@ class _Tree(nn.Module):
 
 
 class Transformer(nn.Module):
-    """One model's parameter tree as an ``nn.Module`` (the leaves are
-    buffers: the port serves, it does not train), with ``forward``,
-    ``encode``, ``prefill`` and ``decode_step`` under
-    ``torch.inference_mode``."""
+    """One model's parameter tree as an ``nn.Module`` for serving (the
+    leaves are buffers), with ``forward``, ``encode``, ``prefill`` and
+    ``decode_step`` under ``torch.inference_mode``.  Training does not go
+    through it: ``lm_loss`` is a function of the parameter tree, whose
+    leaves require grad (``launch/steps.train_step``)."""
 
     def __init__(self, cfg: ArchConfig, params):
         super().__init__()

@@ -1534,3 +1534,79 @@ def test_cpu_baseline_matches_cuda_store(cuda):
               for i in rng.integers(0, n, 1024)]
     assert hc.scan_batch(ranges) == cp.scan_batch(ranges)
     assert cp.stats.gets == 1024 and cp.stats.scans == 1024
+
+
+# ---------------------------------------------------------------- training
+@pytest.mark.parametrize("arch", ["qwen2p5_3b", "olmoe_1b_7b",
+                                  "mamba2_1p3b"])
+def test_train_step_on_cuda_matches_cpu(cuda, arch):
+    """``launch/steps.train_step`` (2 microbatches, remat) on the card
+    against the CPU, smoke configs in f32 from the same parameters and
+    batch (labels with -1s): loss and gnorm to 1e-4 relative, every new
+    parameter and moment to 1e-4 of its leaf's largest magnitude (cuBLAS
+    and the CPU sum in other orders, TF32 off), no kernel of the port
+    launched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    cfg = get_smoke_config(arch)
+    params = sc.map_tree(lambda t: t.float(), sc.init(
+        tf.schema(cfg), torch.Generator().manual_seed(0), "cpu"))
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32)}
+    batch["labels"][:, :4] = -1
+    outs = []
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda):
+            p = sc.map_tree(lambda t: t.to(dev, copy=True), params)
+            build.reset_launches()
+            p, st, m = steps.train_step(p, opt.init(p), batch, cfg,
+                                        opt.AdamWConfig(), accum=2)
+            assert not any(build.LAUNCHES.values())
+            outs.append((float(m["loss"]), float(m["gnorm"]),
+                         [t.detach().cpu()
+                          for t in sc.flatten((p, st.mu, st.nu))]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    (l0, g0, t0), (l1, g1, t1) = outs
+    assert l1 == pytest.approx(l0, rel=1e-4)
+    assert g1 == pytest.approx(g0, rel=1e-4)
+    for a, b in zip(t0, t1):
+        scale = max(float(a.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+def test_checkpoint_round_trip_from_cuda(cuda, tmp_path):
+    """bf16 and f32 leaves and an int32 step saved from the card (async)
+    and restored onto it bit for bit; the catalog store lives on the card
+    and its floor lookups answer from the host tree; an in-place change
+    after ``save`` returns does not reach the checkpoint."""
+    from repro_torch.models import schema as sc
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.checkpoint import CheckpointManager
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {"w": torch.randn(64, 32, generator=gen, device=cuda)
+              .to(torch.bfloat16),
+              "b": {"s": torch.randn(32, generator=gen, device=cuda)}}
+    state = opt.init(params)._replace(
+        step=torch.tensor(5, dtype=torch.int32, device=cuda))
+    want = [t.clone() for t in sc.flatten((params, state))]
+    ck = CheckpointManager(tmp_path, keep=2)
+    assert ck.catalog.device.type == "cuda"
+    build.reset_launches()
+    ck.save(5, (params, state), blocking=False)
+    params["w"].add_(1)                  # the next step, in place
+    ck.wait()
+    ck.save(9, (params, state))
+    assert ck.all_steps() == [5, 9] and ck.latest_step(8) == 5
+    (p, s), _ = ck.restore(5, (params, state))
+    got = sc.flatten((p, s))
+    assert all(t.device.type == "cuda" for t in got)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not any(build.LAUNCHES.values())

@@ -127,9 +127,11 @@ def _imports_of(path: Path) -> list[str]:
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Importing every module of the port, and every module chip_smoke.py
-    and the port's example scripts (examples/torch_*.py) import, leaves
-    jax and repro out of sys.modules."""
+    """Importing every module of the port (the training slice's
+    ``train``, ``data``, ``distributed`` and ``launch.train`` among
+    them), and every module chip_smoke.py and the port's example scripts
+    (examples/torch_*.py) import, leaves jax and repro out of
+    sys.modules."""
     pkg = ROOT / "src" / "repro_torch"
     modules = sorted(
         "repro_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
@@ -137,13 +139,21 @@ def test_port_imports_neither_jax_nor_reference():
     modules += _imports_of(ROOT / "chip_smoke.py")
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
     assert {p.name for p in examples} >= {"torch_quickstart.py",
-                                          "torch_kv_serving.py"}
+                                          "torch_kv_serving.py",
+                                          "torch_train_lm.py"}
     for p in examples:
         modules += _imports_of(p)
     assert "repro_torch.core.shard" in modules and "torch" in modules
     assert "repro_torch.baselines.cpu_store" in modules
     assert "repro_torch.launch.store_dryrun" in modules
     assert "repro_torch.serving.engine" in modules
+    assert {"repro_torch.train.optimizer", "repro_torch.train.checkpoint",
+            "repro_torch.train.train_loop", "repro_torch.data.pipeline",
+            "repro_torch.distributed.compression",
+            "repro_torch.launch.train"} <= set(modules)
+    assert {"repro_torch.train.train_loop",
+            "repro_torch.configs"} <= set(
+        _imports_of(ROOT / "examples" / "torch_train_lm.py"))
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"

@@ -337,7 +337,7 @@ def test_decode_step_matches_reference(arch, dtype):
                              jnp.asarray(bt), jnp.asarray(lens))
     tcache = ttf.DecodeCache(tsc.from_numpy(pools), torch.from_numpy(bt),
                              torch.from_numpy(lens))
-    leaves = tsc.leaves(tcache.layers)
+    leaves = tsc.flatten(tcache.layers)
     tol = LOGIT_TOL if dtype is not None else BF16_TOL
     for step in range(3):
         toks = rng.integers(1, cfg.vocab, (3, 1)).astype(np.int32)
@@ -349,7 +349,7 @@ def test_decode_step_matches_reference(arch, dtype):
                                    **tol, err_msg=f"step {step}")
         np.testing.assert_array_equal(tcache.seq_lens.numpy(),
                                       np.asarray(jcache.seq_lens))
-    assert all(a is b for a, b in zip(tsc.leaves(tcache.layers), leaves))
+    assert all(a is b for a, b in zip(tsc.flatten(tcache.layers), leaves))
     for name in pools:
         for kind in pools[name]:
             got = _np(tcache.layers[name][kind])

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of Honeycomb once on one NVIDIA GPU.
 
 Builds the port's nine CUDA kernels from the seven sources in this
-checkout (one ``nvcc`` per source, all started together), then drives eight
+checkout (one ``nvcc`` per source, all started together), then drives nine
 numbered paths, the store's at the paper's node geometry (the default
 ``HoneycombConfig``: 32 B keys, 16 B values, 1273-word node images), each
 with every kernel's launch count set to 0 just before it and read just
@@ -147,6 +147,32 @@ after:
    the store's host operations only).  The ``train`` entry of each
    kernel's ``launches_by_path`` is the sum of the loop's and the
    drill's, and is 0.
+9. The mesh on one card (``mesh_path``), after path 8's models are
+   freed: a one-rank NCCL world and a (1, 1) ("data", "model")
+   ``DeviceMesh``.  olmoe-1b-7b at its full widths (64 experts top 8,
+   d 2,048, d_ff 1,024, vocab 50,304) cut from 16 layers to 4
+   (1,884,309,504 random bf16 parameters: training holds ~16 B a
+   parameter, ~110 GB for all 16 layers), train_4k's 4,096-token
+   sequences, its batch of 256 cut to 4, in 4 microbatches with remat,
+   trained 3 steps each through ``launch/steps.build_step`` with
+   ``moe_impl="fsliced"`` and ``"ep_ragged"``, the one-device
+   ``train_step(moe_impl="ragged")`` and, as the yardstick the ragged
+   paths exist to beat, ``train_step(moe_impl="dense")``, each from the
+   same seeded parameters and batches: losses and gnorms finite, the
+   three ragged first-step losses within ``MESH_LOSS_TOL``; step time,
+   tokens/s and peak allocation print per variant.  Then the ragged
+   backward (``moe._ragged_ffn``, an autograd Function) against autograd
+   through ``moe_ragged``'s group loop at 2 layers of olmoe's widths in
+   f32.  Then qwen2.5-3b at full size prefilled from 8 seeded prompts of
+   1,024-4,000 tokens into pools of ``decode_cache_abstract``'s shapes
+   (8,192 positions, pages of 256) and decoded 16 greedy tokens through
+   ``build_step``'s decode branch under ``decode_impl="local"``
+   (``paged_attention_local`` around the paged-attention kernel) and
+   ``"gather"``: the logits bit-equal, every launch of the kernel counted
+   (the ``mesh`` entry of ``launches_by_path``).  Last, ``pipeline_apply``
+   on one stage over 2 of qwen's superblocks, 4 microbatches of 1 x 512,
+   bit-equal to the superblocks run in sequence.  One rank only: the
+   multi-rank cases are held on the CPU in gloo worlds.
 
 Then each kernel is held against its plain PyTorch version on the card at
 the shapes its path gave it; the log replay also at D = 1, 32, 1,024 and
@@ -350,6 +376,35 @@ TRAIN_CHECK_LAYERS = 2
 TRAIN_CHECK_TOKENS = 256
 TRAIN_CHECK_TOL = 1e-4
 DRILL_STEPS = 20
+# path 9, the mesh on one card: olmoe-1b-7b at full widths cut from 16
+# layers to 4 (training holds ~16 B a parameter: 110 GB at 6.9 B, 30 GB at
+# 1.88 B), train_4k's 4,096-token sequences, its batch of 256 cut to 4, 4
+# microbatches with remat, 3 steps of each variant from the same seeded
+# parameters; the first-step losses of fsliced, ep_ragged and ragged within
+# MESH_LOSS_TOL (one rank: E_loc = 64 and cap = 40,961 >= T*k = 32,768,
+# nothing dropped, the same function in other bf16 roundings); the ragged
+# backward at 2 layers in f32 within MESH_CHECK_TOL of each leaf's largest
+# magnitude (f32 sums in other orders); qwen2.5-3b decoded 16 tokens
+# through build_step's decode branch from pools of path 5's engine shapes;
+# the pipeline over 2 of qwen's superblocks, 4 microbatches of 1 x 512
+MESH_ARCH = "olmoe-1b-7b"
+MESH_LAYERS = 4
+MESH_PARAMS = 1_884_309_504     # the reference's param_count() at 4 layers
+MESH_SEQ = 4096
+MESH_BATCH = 4
+MESH_ACCUM = 4
+MESH_STEPS = 3
+MESH_LOSS_TOL = 0.02
+MESH_CHECK_LAYERS = 2
+MESH_CHECK_TOKENS = 512
+MESH_CHECK_TOL = 1e-4
+MESH_DECODE_SEQS = 8
+MESH_DECODE_SEQ = 8192
+MESH_DECODE_PROMPTS = (1024, 4000)
+MESH_DECODE_NEW = 16
+PIPE_SUPERBLOCKS = 2
+PIPE_MICRO = 4
+PIPE_TOKENS = 512
 # entries of the log replay's checks against its plain version; then
 # (entries, position of the bad pair) of its rejected calls
 REPLAY_CHECK_D = (1, 29, 1000, 4000)
@@ -660,6 +715,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launches = training_path(args, dev, card)
     print(f"training path with its checks: {time.perf_counter() - t0:.3f} s")
+    print("== the mesh on one card: olmoe-1b-7b trained through fsliced and "
+          "ep_ragged, qwen2.5-3b decoded through build_step, the pipeline ==")
+    t0 = time.perf_counter()
+    mesh_launches = mesh_path(args, dev, card)
+    print(f"mesh path with its checks: {time.perf_counter() - t0:.3f} s")
     print("== kernel check: every entry point of kernels/ops.py ==")
     t0 = time.perf_counter()
     kernel_check_phase(dev)
@@ -674,7 +734,8 @@ def main() -> int:
                    "serving": serve_launches[k["name"]],
                    "serving_moe_ssm": moe_ssm_launches[k["name"]],
                    "serving_encdec": encdec_launches[k["name"]],
-                   "train": train_launches[k["name"]]}
+                   "train": train_launches[k["name"]],
+                   "mesh": mesh_launches[k["name"]]}
         check(by_path["train"] == 0, f"{k['name']} launched in training")
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
@@ -4130,6 +4191,377 @@ def restart_drill(args, dev) -> dict:
           f"{run.stderr[-2000:]}")
     print(f"  example: {time.perf_counter() - t0:.3f} s as a subprocess")
     return launches
+
+
+
+def mesh_path(args, dev, card: str) -> dict:
+    """Path 9: the mesh layer on one card, after path 8's models are
+    freed.  Opens a one-rank NCCL world (``file://`` rendezvous under a
+    temporary directory) and a (1, 1) ("data", "model") ``DeviceMesh``;
+    (a) olmoe-1b-7b cut to ``MESH_LAYERS`` layers trained through
+    ``build_step(moe_impl="fsliced")``, ``build_step(moe_impl=
+    "ep_ragged")``, the one-device ``train_step(moe_impl="ragged")`` and,
+    as the yardstick, ``train_step(moe_impl="dense")`` (``mesh_train``);
+    (b) the ragged backward against autograd through ``moe_ragged``'s
+    group loop (``ragged_backward_check``); (c) qwen2.5-3b decoded through
+    ``build_step``'s decode branch under ``decode_impl="local"`` and
+    ``"gather"`` (``mesh_decode``), every launch count set to 0 just
+    before and read after: its paged-attention launches are the ``mesh``
+    column; (d) ``pipeline_apply`` on one stage (``mesh_pipeline``).  The
+    process group is destroyed when the path ends; every exception goes
+    through.  Multi-rank behaviour (2 x 2 meshes, 4 stages, expert
+    offsets, page rebasing, capacity drops) is held on the CPU in gloo
+    worlds (tests/test_torch_{distributed,moe_parallel}.py), not here."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            print(f"  one-rank {dist.get_backend()} world, mesh "
+                  f"{mesh.mesh_dim_names} {tuple(mesh.shape)}")
+            t0 = time.perf_counter()
+            mesh_train(args, dev, mesh, card)
+            print(f"  olmoe training through the mesh: "
+                  f"{time.perf_counter() - t0:.3f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ragged_backward_check(args, dev, mesh)
+            print(f"  ragged backward check: {time.perf_counter() - t0:.3f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            launches, params = mesh_decode(args, dev, mesh, card)
+            print(f"  qwen decode through build_step: "
+                  f"{time.perf_counter() - t0:.3f} s")
+            t0 = time.perf_counter()
+            mesh_pipeline(args, dev, params)
+            print(f"  pipeline: {time.perf_counter() - t0:.3f} s")
+            del params
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_batches(vocab: int, seed: int, dev) -> list:
+    """``MESH_STEPS`` seeded batches of ``MESH_BATCH`` x ``MESH_SEQ``
+    tokens, the labels the next tokens."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(MESH_STEPS):
+        t = torch.from_numpy(rng.integers(0, vocab, (MESH_BATCH,
+                                                     MESH_SEQ + 1))
+                             .astype(np.int32)).to(dev)
+        out.append({"tokens": t[:, :-1].contiguous(),
+                    "labels": t[:, 1:].contiguous()})
+    return out
+
+
+def mesh_train(args, dev, mesh, card: str) -> None:
+    """Path 9 (a).  Each variant starts from the same seeded bf16
+    parameters (drawn on the card) and takes the same ``MESH_STEPS``
+    batches.  Checks: the parameter count is the reference's, every loss
+    and gnorm is finite, the first-step losses of fsliced, ep_ragged and
+    ragged agree within ``MESH_LOSS_TOL``, no kernel of the port launches.
+    Prints, as figures: each step's loss, gnorm and host-clock time, the
+    median of the steps after the first, tokens/s and the peak
+    allocation, per variant."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import optimizer as opt
+    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS)
+    check(cfg.param_count() == MESH_PARAMS, f"{MESH_ARCH} at {MESH_LAYERS} "
+          f"layers: {cfg.param_count()} parameters, the reference counts "
+          f"{MESH_PARAMS}")
+    print(f"{MESH_ARCH}: d {cfg.d_model}, {cfg.n_experts} experts top-"
+          f"{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; depth cut from "
+          f"16 layers to {MESH_LAYERS} ({MESH_PARAMS} bf16 parameters; "
+          f"training holds ~16 B a parameter, ~110 GB for the whole "
+          f"model's 6.9 B on an 80 GB card); train_4k's {MESH_SEQ}-token "
+          f"sequences, its batch of 256 cut to {MESH_BATCH}, {MESH_ACCUM} "
+          f"microbatches, remat on, {MESH_STEPS} steps a variant; one rank")
+    shape = ShapeConfig("train_4k_cut", "train", MESH_SEQ, MESH_BATCH)
+    ocfg = opt.AdamWConfig(warmup_steps=1, total_steps=MESH_STEPS + 1)
+    batches = mesh_batches(cfg.vocab, args.seed, dev)
+    tokens = MESH_BATCH * MESH_SEQ
+    results = {}
+    for variant in ("fsliced", "ep_ragged", "ragged", "dense"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = sc.init(tf.schema(cfg), torch.Generator(device=dev)
+                         .manual_seed(args.seed), dev)
+        if variant in ("fsliced", "ep_ragged"):
+            built = steps.build_step(
+                cfg, shape, mesh, policy=ShardingPolicy(
+                    expert_parallel=variant == "ep_ragged"),
+                moe_impl=variant, opt_cfg=ocfg, grad_accum=MESH_ACCUM)
+            params = sc.place(params, built.in_shardings[0], mesh)
+            state = opt.init(params)
+
+            def step(p, o, b, built=built):
+                return built.fn(p, o, sc.place(b, built.in_shardings[2],
+                                               mesh))
+        else:
+            state = opt.init(params)
+
+            def step(p, o, b, variant=variant):
+                return steps.train_step(p, o, b, cfg, ocfg,
+                                        accum=MESH_ACCUM, moe_impl=variant)
+        log = []
+        build.reset_launches()
+        for b in batches:
+            sync(dev)
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            loss, gnorm = float(m["loss"]), float(m["gnorm"])
+            sync(dev)
+            log.append((loss, gnorm, time.perf_counter() - t0))
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        step_s = statistics.median(t for _, _, t in log[1:])
+        results[variant] = {
+            "losses": [x[0] for x in log], "gnorms": [x[1] for x in log],
+            "step_ms": [x[2] * 1e3 for x in log],
+            "median_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "peak_allocated_bytes": peak}
+        print(f"  {variant}: losses {[round(x[0], 4) for x in log]}, gnorms "
+              f"{[round(x[1], 4) for x in log]}, steps "
+              f"{[round(x[2] * 1e3, 1) for x in log]} ms (host clock); "
+              f"median of steps 2-{MESH_STEPS} {step_s * 1e3:.1f} ms, "
+              f"{tokens / step_s:.1f} tokens/s; peak allocation {peak} B; "
+              f"card {card}")
+        check(all(np.isfinite(x[0]) and np.isfinite(x[1]) for x in log),
+              f"{variant}: losses and gnorms {log}")
+        check(not any(launches.values()), f"{variant} training launched a "
+              f"kernel of the port: {launches}")
+        del params, state, m
+    first = {v: results[v]["losses"][0]
+             for v in ("fsliced", "ep_ragged", "ragged")}
+    spread = max(first.values()) - min(first.values())
+    print(f"  first-step losses {first}: spread {spread:.6f} (tolerance "
+          f"{MESH_LOSS_TOL}); dense {results['dense']['losses'][0]:.4f}")
+    check(spread <= MESH_LOSS_TOL, f"first-step losses differ: {first}")
+    print(json.dumps({"mesh_training": {
+        "arch": MESH_ARCH, "layers": MESH_LAYERS, "params": MESH_PARAMS,
+        "batch": MESH_BATCH, "seq": MESH_SEQ, "accum": MESH_ACCUM,
+        "variants": results, "card": card}}))
+
+
+def ragged_backward_check(args, dev, mesh) -> None:
+    """Path 9 (b): olmoe-1b-7b at full widths cut to ``MESH_CHECK_LAYERS``
+    layers in f32 (TF32 off), 1 x ``MESH_CHECK_TOKENS`` tokens:
+    ``steps.loss_and_grads`` with ``moe_fsliced_ragged`` on the one-rank
+    mesh (``_ragged_ffn``, the autograd Function with its ragged backward)
+    against the same with ``moe_ragged`` (autograd through its per-group
+    products); the loss and every gradient leaf within ``MESH_CHECK_TOL``
+    of the leaf's largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import moe as me
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_config(MESH_ARCH),
+                              n_layers=MESH_CHECK_LAYERS)
+    schema32 = sc.map_tree(lambda d: dataclasses.replace(
+        d, dtype=torch.float32), tf.schema(cfg))
+    params = sc.init(schema32, torch.Generator(device=dev)
+                     .manual_seed(args.seed), dev)
+    rng = np.random.default_rng(args.seed)
+    t = torch.from_numpy(rng.integers(0, cfg.vocab, (1, MESH_CHECK_TOKENS
+                                                     + 1)).astype(np.int32))
+    batch = {"tokens": t[:, :-1].contiguous().to(dev),
+             "labels": t[:, 1:].contiguous().to(dev)}
+
+    def fsliced(p, x, c):
+        return me.moe_fsliced_ragged(p, x, c, mesh=mesh,
+                                     dp_axes=("data",)).to_local()
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        loss_a, grads_a = steps.loss_and_grads(params, cfg, batch,
+                                               moe_impl=fsliced)
+        loss_b, grads_b = steps.loss_and_grads(params, cfg, batch,
+                                               moe_impl="ragged")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(grads_a, grads_b))
+    loss_err = abs(float(loss_a) - float(loss_b)) / abs(float(loss_b))
+    print(f"  ragged backward, {MESH_ARCH} at full widths, "
+          f"{MESH_CHECK_LAYERS} layers, f32, 1 x {MESH_CHECK_TOKENS} tokens:"
+          f" loss {float(loss_a):.6f} (_ragged_ffn) vs {float(loss_b):.6f} "
+          f"(moe_ragged's loop), relative {loss_err:.2e}; worst gradient "
+          f"leaf {worst:.2e} of its max over {len(grads_a)} leaves "
+          f"(tolerance {MESH_CHECK_TOL})")
+    check(loss_err <= MESH_CHECK_TOL and worst <= MESH_CHECK_TOL,
+          f"ragged backward vs autograd: loss {loss_err:.3e}, "
+          f"gradients {worst:.3e}")
+
+
+def mesh_decode(args, dev, mesh, card: str) -> tuple:
+    """Path 9 (c): qwen2.5-3b at full size (random bf16 weights from
+    ``--seed``) prefilled one sequence at a time from ``MESH_DECODE_SEQS``
+    seeded prompts of 1,024-4,000 tokens (each padded to whole pages, its
+    logits taken at its last real token) into pools of
+    ``steps.decode_cache_abstract``'s shapes (8 sequences, 8,192
+    positions, pages of 256: path 5's engine shapes), then
+    ``MESH_DECODE_NEW`` greedy decode steps through ``build_step``'s decode
+    branch under ``ShardingPolicy(decode_impl="local")`` and, from the same
+    pools, under ``"gather"``.  Every launch count is set to 0 just before
+    the local steps and read after the gather steps.  Checks: the logits
+    of every step bit-equal between the two (one rank: the rebased block
+    table is the table itself and both run the paged-attention kernel),
+    finite, and 2 x steps x 36 paged-attention launches.  Returns the
+    launch counts and the parameters (for the pipeline)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ShapeConfig
+    cfg = get_config("qwen2.5-3b")
+    B, S, P = MESH_DECODE_SEQS, MESH_DECODE_SEQ, SERVING_PAGE
+    params = sc.init(tf.schema(cfg), torch.Generator(device=dev)
+                     .manual_seed(args.seed), dev)
+    rng = np.random.default_rng(args.seed + 9)
+    lens = rng.integers(MESH_DECODE_PROMPTS[0], MESH_DECODE_PROMPTS[1] + 1, B)
+    dec = ShapeConfig("mesh_decode", "decode", S, B, P)
+    spec = steps.decode_cache_abstract(cfg, dec)
+    layers = sc.map_tree(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                               device=dev), spec.layers)
+    room = S // P
+    first = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for b, n in enumerate(lens):
+            n = int(n)
+            pps = -(-n // P)
+            toks = torch.zeros((1, pps * P), dtype=torch.int32, device=dev)
+            toks[0, :n] = torch.from_numpy(
+                rng.integers(1, cfg.vocab, n).astype(np.int32))
+            logits, cache = tf.prefill(params, cfg, toks, P, last_pos=n - 1)
+            for name, c in cache.layers.items():
+                for kind, t in c.items():
+                    layers[name][kind][:, b * room:b * room + pps] = t
+            first.append(int(logits[0].argmax()))
+            del cache
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    bt = torch.arange(B * room, dtype=torch.int32, device=dev).view(B, room)
+    seq_lens = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    start = torch.tensor(first, dtype=torch.int32, device=dev)[:, None]
+    print(f"  qwen2.5-3b: {B} prompts of {lens.tolist()} tokens prefilled "
+          f"one at a time in {prefill_s:.3f} s into pools of "
+          f"{tuple(spec.layers['l0']['k_pages'].shape)} (decode_cache_"
+          f"abstract at seq_len {S}, pages of {P})")
+    runs = {}
+    placed = None
+    build.reset_launches()
+    for impl in ("local", "gather"):
+        built = steps.build_step(cfg, dec, mesh, policy=ShardingPolicy(
+            decode_impl=impl))
+        if placed is None:
+            placed = sc.place(params, built.in_shardings[0], mesh)
+        csh = built.in_shardings[1]
+        pools = layers if impl == "gather" else sc.map_tree(torch.clone,
+                                                           layers)
+        cache = tf.DecodeCache(
+            sc.place(pools, csh.layers, mesh),
+            sc.place({"x": bt}, {"x": csh.block_tables}, mesh)["x"],
+            sc.place({"x": seq_lens}, {"x": csh.seq_lens}, mesh)["x"])
+        tok, rows, times = start, [], []
+        for _ in range(MESH_DECODE_NEW):
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = built.fn(
+                placed, cache, sc.place({"x": tok}, {"x": built.in_shardings[
+                    2]}, mesh)["x"])
+            logits = logits.to_local()
+            tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+            rows.append(logits)
+        runs[impl] = (torch.stack(rows), times)
+        del cache, pools
+    launches = dict(build.LAUNCHES)
+    (la, ta), (lb, tb) = runs["local"], runs["gather"]
+    equal = torch.equal(la, lb)
+    for impl, (_, ts) in runs.items():
+        med = statistics.median(ts[1:])
+        print(f"  decode_impl={impl}: {MESH_DECODE_NEW} steps, median "
+              f"{med * 1e3:.2f} ms a step after the first ({ts[0] * 1e3:.1f}"
+              f" ms), {B / med:.1f} tokens/s (host clock); card {card}")
+    want = 2 * MESH_DECODE_NEW * cfg.n_layers
+    print(f"  local vs gather logits over {MESH_DECODE_NEW} steps bit-equal: "
+          f"{equal}; paged-attention launches {launches['paged_attention']} "
+          f"(want {want}); served tokens "
+          f"{la.argmax(dim=-1).T.tolist()[0]} (sequence 0)")
+    check(bool(torch.isfinite(la).all()), "local decode logits not finite")
+    check(equal, "decode_impl=local and gather differ: max abs "
+          f"{float((la - lb).abs().max())}")
+    check(launches["paged_attention"] == want, f"paged-attention launches "
+          f"{launches['paged_attention']}, want {want}")
+    del placed, layers
+    return launches, params
+
+
+def mesh_pipeline(args, dev, params) -> None:
+    """Path 9 (d): ``pipeline_apply`` over a one-stage ("stage",) mesh of
+    the first ``PIPE_SUPERBLOCKS`` of qwen2.5-3b's superblocks at full
+    width (stage parameters [1, 2, ...]), ``PIPE_MICRO`` microbatches of
+    1 x ``PIPE_TOKENS`` seeded embeddings, against the same superblocks
+    run on each microbatch in sequence: bit-equal.  (The multi-stage ring
+    is held on the CPU.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    cfg = get_config("qwen2.5-3b")
+    kinds = tf.layer_kinds(cfg)
+    stage = sc.map_tree(lambda t: t[:PIPE_SUPERBLOCKS][None],
+                        params["blocks"])
+    rng = np.random.default_rng(args.seed + 11)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (
+        PIPE_MICRO, 1, PIPE_TOKENS)).astype(np.int64)).to(dev)
+
+    def fn(p, x):
+        for blk in tf._unstack(p, PIPE_SUPERBLOCKS):
+            for j, (kind, ffn) in enumerate(kinds):
+                x, _ = tf._layer(blk[f"l{j}"], x, cfg, kind, ffn,
+                                 build_cache=False)
+        return x
+    stages = make_mesh((1,), ("stage",))
+    with torch.no_grad():
+        x = params["embed"][toks]                 # [M, 1, S, d]
+        sync(dev)
+        t0 = time.perf_counter()
+        got = pipeline_apply(fn, stage, x, mesh=stages,
+                             stage_axis="stage").to_local()
+        sync(dev)
+        pipe_s = time.perf_counter() - t0
+        one = sc.map_tree(lambda t: t[0], stage)
+        want = torch.stack([fn(one, x[m]) for m in range(PIPE_MICRO)])
+    equal = torch.equal(got, want)
+    print(f"  pipeline_apply, 1 stage of {PIPE_SUPERBLOCKS} qwen2.5-3b "
+          f"superblocks, {PIPE_MICRO} microbatches of 1 x {PIPE_TOKENS}: "
+          f"{pipe_s * 1e3:.1f} ms; bit-equal to the sequential run: {equal}")
+    check(equal and bool(torch.isfinite(got).all()),
+          f"pipeline vs sequential: max abs {float((got - want).abs().max())}")
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ NEG_INF = -2.3819763e38
 
 # ----------------------------------------------------------------- norms
 def rmsnorm_schema(d: int):
-    return {"scale": ParamDef((d,), F32, "ones")}
+    return {"scale": ParamDef((d,), (None,), F32, "ones")}
 
 
 def rmsnorm(p, x, eps: float = 1e-6):
@@ -52,15 +52,15 @@ def rope(x, positions, theta: float):
 def attention_schema(cfg: ArchConfig):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = {
-        "wq": ParamDef((d, h * hd)),
-        "wk": ParamDef((d, kv * hd)),
-        "wv": ParamDef((d, kv * hd)),
-        "wo": ParamDef((h * hd, d)),
+        "wq": ParamDef((d, h * hd), ("embed", "heads")),
+        "wk": ParamDef((d, kv * hd), ("embed", "kv")),
+        "wv": ParamDef((d, kv * hd), ("embed", "kv")),
+        "wo": ParamDef((h * hd, d), ("heads", "embed")),
     }
     if cfg.qkv_bias:
-        s["bq"] = ParamDef((h * hd,), F32, "zeros")
-        s["bk"] = ParamDef((kv * hd,), F32, "zeros")
-        s["bv"] = ParamDef((kv * hd,), F32, "zeros")
+        s["bq"] = ParamDef((h * hd,), ("heads",), F32, "zeros")
+        s["bk"] = ParamDef((kv * hd,), ("kv",), F32, "zeros")
+        s["bv"] = ParamDef((kv * hd,), ("kv",), F32, "zeros")
     return s
 
 
@@ -131,7 +131,8 @@ def attention(p, x, cfg: ArchConfig, *, local: bool, positions=None,
 
 
 def decode_attention(p, x, cfg: ArchConfig, k_pages, v_pages, block_tables,
-                     seq_lens, *, local: bool, page_size: int, attn=None):
+                     seq_lens, *, local: bool, page_size: int, attn=None,
+                     local_impl=None):
     """Single-token decode over a paged KV cache (scatter, then attend).
 
     x: [B, 1, d]; k_pages/v_pages: [NP, P, KVH, HD] (this layer's pool);
@@ -139,7 +140,11 @@ def decode_attention(p, x, cfg: ArchConfig, k_pages, v_pages, block_tables,
     lookups); seq_lens: [B] int32 tokens already in the cache (the new
     token's position).  ``attn`` is the paged attention
     (``kernels/ops.paged_attention`` when None: the hand-written kernel on
-    CUDA, its plain version on the CPU).
+    CUDA, its plain version on the CPU).  ``local_impl`` (the mesh's
+    ``distributed/paged_attention.paged_attention_local`` with its layout
+    bound) replaces both the scatter and the attention:
+    ``local_impl(q, k_pages, v_pages, block_tables, seq_lens, start, k_new,
+    v_new, scale=, softcap=) -> (out, k_pages, v_pages)``.
 
     The new token's K/V is written into its page slot IN PLACE on the
     pools, where the reference's ``.at[].set`` makes new arrays; then one
@@ -159,14 +164,19 @@ def decode_attention(p, x, cfg: ArchConfig, k_pages, v_pages, block_tables,
     else:
         start = torch.zeros_like(new_lens)
 
-    rows = torch.arange(B, device=x.device)
-    pos = seq_lens.long()
-    page = block_tables[rows, pos // page_size].long()
-    slot = pos % page_size
-    k_pages[page, slot] = k_new.to(k_pages.dtype)
-    v_pages[page, slot] = v_new.to(v_pages.dtype)
-    o = attn(q, k_pages, v_pages, block_tables, new_lens, start,
-             scale=hd ** -0.5, softcap=cfg.attn_softcap)
+    if local_impl is not None:
+        o, k_pages, v_pages = local_impl(
+            q, k_pages, v_pages, block_tables, seq_lens, start, k_new,
+            v_new, scale=hd ** -0.5, softcap=cfg.attn_softcap)
+    else:
+        rows = torch.arange(B, device=x.device)
+        pos = seq_lens.long()
+        page = block_tables[rows, pos // page_size].long()
+        slot = pos % page_size
+        k_pages[page, slot] = k_new.to(k_pages.dtype)
+        v_pages[page, slot] = v_new.to(v_pages.dtype)
+        o = attn(q, k_pages, v_pages, block_tables, new_lens, start,
+                 scale=hd ** -0.5, softcap=cfg.attn_softcap)
     o = o.reshape(B, 1, h * hd).to(x.dtype)
     return torch.matmul(o, p["wo"]), (k_pages, v_pages)
 
@@ -175,9 +185,9 @@ def decode_attention(p, x, cfg: ArchConfig, k_pages, v_pages, block_tables,
 def mlp_schema(cfg: ArchConfig):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "w_gate": ParamDef((d, f)),
-        "w_up": ParamDef((d, f)),
-        "w_down": ParamDef((f, d)),
+        "w_gate": ParamDef((d, f), ("embed", "mlp")),
+        "w_up": ParamDef((d, f), ("embed", "mlp")),
+        "w_down": ParamDef((f, d), ("mlp", "embed")),
     }
 
 

@@ -48,14 +48,15 @@ def mamba_schema(cfg: ArchConfig):
     # in_proj emits [z, x, B, C, dt]
     d_proj = 2 * din + 2 * G * N + H
     return {
-        "in_proj": ParamDef((d, d_proj)),
-        "conv_w": ParamDef((cfg.conv_width, conv_dim)),
-        "conv_b": ParamDef((conv_dim,), F32, "zeros"),
-        "A_log": ParamDef((H,), F32, "zeros"),
-        "D": ParamDef((H,), F32, "ones"),
-        "dt_bias": ParamDef((H,), F32, "zeros"),
+        "in_proj": ParamDef((d, d_proj), ("embed", "mlp")),
+        "conv_w": ParamDef((cfg.conv_width, conv_dim),
+                           (None, "mlp")),
+        "conv_b": ParamDef((conv_dim,), ("mlp",), F32, "zeros"),
+        "A_log": ParamDef((H,), (None,), F32, "zeros"),
+        "D": ParamDef((H,), (None,), F32, "ones"),
+        "dt_bias": ParamDef((H,), (None,), F32, "zeros"),
         "out_norm": rmsnorm_schema(din)["scale"],
-        "out_proj": ParamDef((din, d)),
+        "out_proj": ParamDef((din, d), ("mlp", "embed")),
     }
 
 

@@ -23,15 +23,31 @@ Both train: ``moe_ragged``'s gradients are autograd's through its
 slices, held to the reference's ragged gradients
 (tests/test_torch_lm_loss.py).
 
-Not ported: ``moe_ep_ragged``/``moe_fsliced_ragged`` (``shard_map`` over
-a device mesh) and ``_ragged_ffn`` with its custom VJP, whose only
-callers they are (ROADMAP A, item 6).
+Two mesh variants run under ``compat.shard_map`` with the reference's
+specs, each over ``_ragged_ffn`` (a ``torch.autograd.Function``: three
+grouped products over contiguous expert groups forward, every backward
+term ragged as the reference's custom VJP keeps it):
+
+  * ``moe_ep_ragged`` — experts sharded on the model axis; each rank
+    sorts its tokens by local expert, computes at most ``cap`` routed rows
+    (tokens past capacity dropped) and one ``psum`` over the expert axis
+    combines each token's top-k outputs.
+  * ``moe_fsliced_ragged`` — every model rank computes its d_ff slice of
+    all routed rows (no capacity, no drops), combined in the model dtype
+    and summed by one ``psum`` over the f axis.
+
+Each returns the DTensor ``shard_map`` makes (batch on ``dp_axes``); the
+reference's ``jax.lax.ragged_dot`` is no Pallas kernel, and each group's
+product here is a ``torch.matmul``, the group sizes read back once a
+call.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..compat import PartitionSpec as P, axis_index, mesh_sizes, psum, \
+    shard_map
 from .config import ArchConfig
 from .schema import ParamDef
 
@@ -41,10 +57,10 @@ F32 = torch.float32
 def moe_schema(cfg: ArchConfig):
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     return {
-        "router": ParamDef((d, E), F32),
-        "w_gate": ParamDef((E, d, f)),
-        "w_up": ParamDef((E, d, f)),
-        "w_down": ParamDef((E, f, d)),
+        "router": ParamDef((d, E), ("embed", None), F32),
+        "w_gate": ParamDef((E, d, f), ("expert", "embed", "moe_mlp")),
+        "w_up": ParamDef((E, d, f), ("expert", "embed", "moe_mlp")),
+        "w_down": ParamDef((E, f, d), ("expert", "moe_mlp", "embed")),
     }
 
 
@@ -102,6 +118,174 @@ def moe_ragged(p, x, cfg: ArchConfig):
     inv = torch.argsort(order)
     y = yy[inv] * gates[:, None].to(yy.dtype)
     return y.reshape(B, S, k, d).sum(dim=2).to(x.dtype)
+
+
+# --- ragged FFN with exact ragged gradients ---------------------------------
+def _ragged_dot(a, w, sizes):
+    """[m, p] x [E, p, q], rows grouped by ``sizes`` -> [m, q]: group e's
+    rows times w[e]; rows past the groups are zeros (as ragged_dot's)."""
+    out = a.new_zeros(a.shape[0], w.shape[-1])
+    lo = 0
+    for e, n in enumerate(sizes):
+        if n:
+            out[lo:lo + n] = torch.matmul(a[lo:lo + n], w[e])
+        lo += n
+    return out
+
+
+def _ragged_outer(a, b, sizes):
+    """[m, p], [m, q], groups over m -> [E, p, q]: per group a_gᵀ · b_g."""
+    out = a.new_zeros(len(sizes), a.shape[1], b.shape[1])
+    lo = 0
+    for e, n in enumerate(sizes):
+        if n:
+            out[e] = torch.matmul(a[lo:lo + n].T, b[lo:lo + n])
+        lo += n
+    return out
+
+
+class _RaggedFFN(torch.autograd.Function):
+    """silu(xs·wg) * (xs·wu) · wd per contiguous expert group.  The
+    backward keeps every term ragged (the reference's ``_ragged_ffn_bwd``):
+    dX through the transposed weights per group, dW as per-group outer
+    products, from the saved ``gg``, ``uu`` and ``hh``."""
+
+    @staticmethod
+    def forward(ctx, xs, wg, wu, wd, sizes):
+        gg = _ragged_dot(xs, wg, sizes)
+        uu = _ragged_dot(xs, wu, sizes)
+        hh = F.silu(gg) * uu
+        ctx.save_for_backward(xs, wg, wu, wd, gg, uu, hh)
+        ctx.sizes = sizes
+        return _ragged_dot(hh, wd, sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, wg, wu, wd, gg, uu, hh = ctx.saved_tensors
+        gs = ctx.sizes
+        dhh = _ragged_dot(dy, wd.transpose(1, 2), gs)
+        dwd = _ragged_outer(hh, dy, gs)
+        sig = torch.sigmoid(gg)
+        dsilu = sig * (1 + gg * (1 - sig))
+        dgg = dhh * uu * dsilu
+        duu = dhh * F.silu(gg)
+        dxs = _ragged_dot(dgg, wg.transpose(1, 2), gs) \
+            + _ragged_dot(duu, wu.transpose(1, 2), gs)
+        dwg = _ragged_outer(xs, dgg, gs)
+        dwu = _ragged_outer(xs, duu, gs)
+        return dxs, dwg, dwu, dwd, None
+
+
+def _ragged_ffn(xs, wg, wu, wd, group_sizes):
+    """The grouped FFN over rows sorted by expert; ``group_sizes`` [E]
+    (a tensor, read back here once, or a list)."""
+    sizes = group_sizes.tolist() if torch.is_tensor(group_sizes) \
+        else list(group_sizes)
+    return _RaggedFFN.apply(xs, wg, wu, wd, sizes)
+
+
+def _route(xt, router, k: int):
+    """top-k routing of rows [T, d] -> (gates [T*k] f32, experts [T*k])."""
+    probs = torch.softmax(torch.matmul(xt.to(F32), router), dim=-1)
+    top_p, top_i = torch.topk(probs, k, dim=-1)
+    top_p = top_p / top_p.sum(-1, keepdim=True)
+    return top_p.reshape(-1), top_i.reshape(-1)
+
+
+def _dp_size(mesh, dp_axes) -> int:
+    sizes = mesh_sizes(mesh)
+    n = 1
+    for a in dp_axes:
+        n *= sizes[a]
+    return n
+
+
+def moe_ep_ragged(p, x, cfg: ArchConfig, *, mesh, dp_axes,
+                  expert_axis: str = "model"):
+    """Expert-parallel ragged MoE under ``shard_map``.  Experts shard on
+    ``expert_axis`` (replicated across data); each rank sorts ITS tokens by
+    local expert, computes a capacity-bounded ragged product over routed
+    rows only (cap = T_loc*k*E_loc/E * capacity_factor + 1 rows) and one
+    ``psum`` over the expert axis combines each token's top-k partial
+    outputs.  Rows beyond capacity are dropped; the invalid rows taken
+    within it fold into the last group with zero gates."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    E_loc = E // mesh_sizes(mesh)[expert_axis]
+    T_loc = (B // _dp_size(mesh, dp_axes)) * S
+    cap = int(T_loc * k * E_loc / E * cfg.capacity_factor) + 1
+
+    def body(x_loc, router, wg, wu, wd):
+        Bl, S_, d_ = x_loc.shape
+        T = Bl * S_
+        xt = x_loc.reshape(T, d_)
+        gates, eid = _route(xt, router, k)
+        eloc = eid - axis_index(mesh, expert_axis) * E_loc
+        valid = (eloc >= 0) & (eloc < E_loc)
+        # sort: local experts ascending, non-local last; take cap rows
+        order = torch.argsort(torch.where(valid, eloc, E_loc), stable=True)
+        sel = order[:cap]
+        sel_valid = valid[sel]
+        es = torch.where(sel_valid, eloc[sel], E_loc - 1)
+        group_sizes = torch.bincount(es, minlength=E_loc)
+        tok = sel // k                       # owning token of each row
+        xs = xt[tok]                         # only the capacity rows
+        gs = torch.where(sel_valid, gates[sel], 0.0)
+
+        yy = _ragged_ffn(xs, wg, wu, wd, group_sizes)
+        yy = yy.to(F32) * gs[:, None]
+        # combine: scatter-add into [T, d] (duplicate tokens sum)
+        out = torch.zeros((T, d_), dtype=F32, device=xt.device) \
+            .index_add(0, tok, yy)
+        out = psum(out, mesh, expert_axis)
+        return out.reshape(Bl, S_, d_).to(x_loc.dtype)
+
+    return shard_map(
+        body, mesh=mesh,
+        in_specs=(P(dp_axes, None, None), P(None, None),
+                  P(expert_axis, None, None), P(expert_axis, None, None),
+                  P(expert_axis, None, None)),
+        out_specs=P(dp_axes, None, None),
+        check_vma=False,
+    )(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+
+
+def moe_fsliced_ragged(p, x, cfg: ArchConfig, *, mesh, dp_axes,
+                       f_axis: str = "model"):
+    """f-sliced ragged MoE: every rank of ``f_axis`` computes its d_ff
+    slice of ALL routed rows (T*k exactly: no capacity, no drops); three
+    ragged products over the local slice, the combine in the model dtype,
+    one ``psum`` over the f axis completes the down-projection."""
+    k = cfg.top_k
+    E = cfg.n_experts
+
+    def body(x_loc, router, wg, wu, wd):
+        Bl, S_, d_ = x_loc.shape
+        T = Bl * S_
+        xt = x_loc.reshape(T, d_)
+        gates, eid = _route(xt, router, k)
+        order = torch.argsort(eid, stable=True)      # every row computed
+        tok = order // k
+        xs = xt[tok]
+        group_sizes = torch.bincount(eid, minlength=E)
+
+        yy = _ragged_ffn(xs, wg, wu, wd, group_sizes)  # f-slice partials
+        # combine in the model dtype (halves the [T*k, d] buffers and the
+        # psum's bytes, as in the reference)
+        yy = yy * gates[order][:, None].to(yy.dtype)
+        out = torch.zeros((T, d_), dtype=yy.dtype, device=xt.device) \
+            .index_add(0, tok, yy)
+        out = psum(out, mesh, f_axis)                # complete d_ff sums
+        return out.reshape(Bl, S_, d_).to(x_loc.dtype)
+
+    return shard_map(
+        body, mesh=mesh,
+        in_specs=(P(dp_axes, None, None), P(None, None),
+                  P(None, None, f_axis), P(None, None, f_axis),
+                  P(None, f_axis, None)),
+        out_specs=P(dp_axes, None, None),
+        check_vma=False,
+    )(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
 
 
 def moe(p, x, cfg: ArchConfig, impl="dense"):

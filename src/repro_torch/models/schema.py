@@ -1,12 +1,15 @@
 """Parameter schema (port of ``repro.models.schema``): one source of truth
-for shapes, dtypes and initializers.
+for shapes, dtypes, logical sharding axes and initializers.
 
 A model declares its parameters once as a nested dict of ``ParamDef``;
 ``init`` draws real parameters from it with an explicit
 ``torch.Generator``, and ``from_numpy`` carries the reference's parameters
-(a nested dict of numpy arrays) into the port leaf for leaf.  The
-reference's logical sharding axes and mesh specs are not ported: the port
-runs on one card.
+(a nested dict of numpy arrays) into the port leaf for leaf.  Each leaf
+names its dimensions' logical axes, as in the reference; ``shardings``
+maps them through a rule table (``distributed/sharding.make_rules``) onto
+a ``DeviceMesh``'s dimensions and gives each leaf its DTensor placements
+(the reference's ``NamedSharding``).  ``place`` lays a full tree out on a
+mesh by those placements and ``gather`` brings it back whole.
 
 Trees are nested dicts of leaves; the training state adds tuples (the
 optimizer's ``OptState``).  ``flatten``/``unflatten`` walk them in
@@ -21,12 +24,20 @@ import math
 import numpy as np
 import torch
 
+from ..compat import PartitionSpec as P, full_value, placements
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]          # logical axis names, len == ndim
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"                  # normal | zeros | ones | embed
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             f"differ in length")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +49,10 @@ class Spec:
 
 
 def stack(n: int, tree):
-    """Prepend a stacked-layers dimension to every ParamDef in a tree."""
-    return map_tree(lambda d: ParamDef((n, *d.shape), d.dtype, d.init), tree)
+    """Prepend a stacked-layers dimension (logical axis ``"layers"``) to
+    every ParamDef in a tree."""
+    return map_tree(lambda d: ParamDef((n, *d.shape), ("layers", *d.axes),
+                                       d.dtype, d.init), tree)
 
 
 def map_tree(fn, tree, *rest):
@@ -81,6 +94,42 @@ def unflatten(like, leaves):
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
     return out
+
+
+def logical_specs(tree):
+    """A ``PartitionSpec`` of logical axis names per leaf."""
+    return map_tree(lambda d: P(*d.axes), tree)
+
+
+def to_mesh_specs(logical_tree, rules: dict):
+    """Map logical axis names to mesh axis names through ``rules`` (a name
+    the rules lack maps to None: replicated)."""
+    return map_tree(lambda s: P(*(None if ax is None else rules.get(ax)
+                                  for ax in s)), logical_tree)
+
+
+def shardings(tree, rules: dict, mesh):
+    """Each leaf's DTensor placements on ``mesh``: per mesh dimension,
+    ``Shard(d)`` where tensor dimension d maps to it, else
+    ``Replicate()``.  A leaf is a tuple: walk such a tree with
+    ``map_tree`` (``flatten`` opens tuples)."""
+    return map_tree(lambda s: placements(s, mesh),
+                    to_mesh_specs(logical_specs(tree), rules))
+
+
+def place(tree, placement_tree, mesh):
+    """A tree of full tensors (equal on every rank) laid out on ``mesh`` as
+    DTensors by ``placement_tree`` (``shardings``' output).  A leaf
+    replicated on every mesh dimension may keep its tensor's storage: a
+    step that updates the placed tree in place changes that tensor too."""
+    from torch.distributed.tensor import distribute_tensor
+    return map_tree(lambda t, pl: distribute_tensor(t, mesh, list(pl)),
+                    tree, placement_tree)
+
+
+def gather(tree):
+    """Every DTensor leaf of a tree as its full tensor on every rank."""
+    return map_tree(full_value, tree)
 
 
 def n_params(tree) -> int:

@@ -95,10 +95,11 @@ def _encoder_layer_schema(cfg: ArchConfig):
 def schema(cfg: ArchConfig):
     d, v = cfg.d_model, cfg.vocab
     s: dict[str, Any] = {
-        "embed": ParamDef((v, d), torch.bfloat16, "embed"),
+        "embed": ParamDef((v, d), ("vocab", "embed"), torch.bfloat16,
+                          "embed"),
         "blocks": stack(cfg.n_superblocks, superblock_schema(cfg)),
         "final_norm": ll.rmsnorm_schema(d),
-        "lm_head": ParamDef((d, v)),
+        "lm_head": ParamDef((d, v), ("embed", "vocab")),
     }
     if cfg.n_enc_layers:
         s["enc_blocks"] = stack(cfg.n_enc_layers, _encoder_layer_schema(cfg))
@@ -317,29 +318,37 @@ def layer_cache_schema(cfg: ArchConfig, batch: int, pages_per_seq: int,
     reference)."""
     n_pages = batch * pages_per_seq
     kv = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    # logical axes; the rules decide whether kv_heads or head_dim maps
+    # onto the mesh's model axis (by divisibility)
+    kv_axes = ("kv_pages", None, "kv_heads", "head_dim")
     out = {}
     for i, (kind, _) in enumerate(layer_kinds(cfg)):
         if kind == "M":
             conv_dim = cfg.d_inner + 2 * cfg.ssm_state
             out[f"l{i}"] = {
                 "ssm": ParamDef((batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
-                                 cfg.ssm_state), F32, "zeros"),
-                "conv": ParamDef((batch, cfg.conv_width - 1, conv_dim), F32,
-                                 "zeros"),
+                                 cfg.ssm_state),
+                                ("batch", "heads", None, None), F32,
+                                "zeros"),
+                "conv": ParamDef((batch, cfg.conv_width - 1, conv_dim),
+                                 ("batch", None, "mlp"), F32, "zeros"),
             }
         else:
-            out[f"l{i}"] = {"k_pages": ParamDef(kv), "v_pages": ParamDef(kv)}
+            out[f"l{i}"] = {"k_pages": ParamDef(kv, kv_axes),
+                            "v_pages": ParamDef(kv, kv_axes)}
     return out
 
 
 def decode_step(params, cfg: ArchConfig, cache: DecodeCache, tokens,
-                page_size: int, attn=None, enc_out=None):
+                page_size: int, attn=None, enc_out=None,
+                attn_local_impl=None):
     """One decode token for the whole batch: tokens [B, 1] int.  The pools
     and mamba states of ``cache.layers`` are updated in place.  ``attn``
     is the paged attention (``kernels/ops.paged_attention`` when None).
     The MoE FFN is the dense one, as in the reference.  With ``enc_out``
     [B, Senc, d], each non-``M`` layer cross-attends to all Senc frames
-    (no ``ctx_lens``, as in the reference).
+    (no ``ctx_lens``, as in the reference).  ``attn_local_impl`` goes to
+    every attention layer's ``decode_attention`` as ``local_impl``.
     Returns (logits [B, V], DecodeCache with seq_lens + 1)."""
     x = params["embed"][tokens.long()]
     bt, lens = cache.block_tables, cache.seq_lens
@@ -358,7 +367,8 @@ def decode_step(params, cfg: ArchConfig, cache: DecodeCache, tokens,
             else:
                 y, _ = ll.decode_attention(
                     p["attn"], h, cfg, c["k_pages"], c["v_pages"], bt, lens,
-                    local=(kind == "L"), page_size=page_size, attn=attn)
+                    local=(kind == "L"), page_size=page_size, attn=attn,
+                    local_impl=attn_local_impl)
             x = _ffn(p, _xattn(p, x + y, cfg, kind, enc_out), cfg, ffn)
     return _logits(params, cfg, x)[:, 0], DecodeCache(cache.layers, bt,
                                                       lens + 1)

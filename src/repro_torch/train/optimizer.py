@@ -43,14 +43,13 @@ class OptState(NamedTuple):
 
 
 def init(params) -> OptState:
-    """Zero moments in f32 beside each parameter, step 0."""
+    """Zero moments in f32 beside each parameter (laid out as it is: a
+    DTensor's moments are DTensors of its placements), step 0."""
     device = sc.flatten(params)[0].device
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=device),
-        mu=sc.map_tree(lambda p: torch.zeros(p.shape, dtype=F32,
-                                             device=p.device), params),
-        nu=sc.map_tree(lambda p: torch.zeros(p.shape, dtype=F32,
-                                             device=p.device), params))
+        mu=sc.map_tree(lambda p: torch.zeros_like(p, dtype=F32), params),
+        nu=sc.map_tree(lambda p: torch.zeros_like(p, dtype=F32), params))
 
 
 def abstract_state(abstract_params) -> OptState:
@@ -82,15 +81,19 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: OptState, params,
-           grad_transform: Callable | None = None):
+           grad_transform: Callable | None = None, gnorm=None):
     """One AdamW step.  ``grad_transform`` is the compression hook, given
     the clipped f32 gradients (after clipping, as in the reference).
+    ``gnorm`` is the gradients' global norm where the caller took it: the
+    trees a mesh's train step passes hold one rank's shards, whose norm
+    is not the whole tree's (``launch/steps.build_step``).
 
     In place: the parameters, ``state.mu`` and ``state.nu`` are updated
     where they lie, and ``grads``' f32 leaves are scaled where they lie
     (the caller hands them over).  Returns (params, OptState with the new
     step, gnorm), the trees being the ones passed in."""
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     grads = sc.map_tree(
         lambda g: g.mul_(scale) if g.dtype == F32 else g.to(F32) * scale,

@@ -1610,3 +1610,128 @@ def test_checkpoint_round_trip_from_cuda(cuda, tmp_path):
     for a, b in zip(want, got):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert not any(build.LAUNCHES.values())
+
+
+# ------------------------------------------------------------------ the mesh
+@pytest.fixture
+def one_rank_mesh(cuda, tmp_path):
+    """A one-rank NCCL world and a (1, 1) ("data", "model") mesh on the
+    card; the process group is destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _moe_case(E=8, k=2, d=64, f=64, B=4, S=32, seed=0):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe as me
+    cfg = dataclasses.replace(get_smoke_config("olmoe_1b_7b"), n_experts=E,
+                              top_k=k, d_model=d, d_ff=f)
+    g = torch.Generator().manual_seed(seed)
+    p = {name: torch.randn(spec.shape, generator=g) / spec.shape[-2] ** 0.5
+         for name, spec in me.moe_schema(cfg).items()}
+    x = torch.randn(B, S, d, generator=g) * 0.5
+    return cfg, p, x
+
+
+def test_ragged_ffn_on_cuda_matches_cpu(cuda):
+    """``moe._ragged_ffn`` (the autograd Function) forward and its ragged
+    backward on the card against the CPU in f32 (TF32 off), an empty
+    group and rows past the groups included."""
+    from repro_torch.models import moe as me
+    g = torch.Generator().manual_seed(1)
+    sizes = [5, 0, 17, 9]
+    xs = torch.randn(34, 64, generator=g)
+    ws = [torch.randn(s, generator=g) / 8 for s in
+          ((4, 64, 96), (4, 64, 96), (4, 96, 64))]
+    dy = torch.randn(34, 64, generator=g)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for dev in ("cpu", cuda):
+            a = [t.to(dev).requires_grad_(True) for t in (xs, *ws)]
+            y = me._ragged_ffn(*a, torch.tensor(sizes, device=dev))
+            gr = torch.autograd.grad((y * dy.to(dev)).sum(), a)
+            outs.append([t.detach().cpu() for t in (y, *gr)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    for a, b in zip(*outs):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+    assert not outs[1][0][31:].any()
+
+
+@pytest.mark.parametrize("variant", ["fsliced", "ep"])
+def test_mesh_moe_on_one_card_matches_ragged(one_rank_mesh, variant):
+    """``moe_fsliced_ragged`` / ``moe_ep_ragged`` under ``shard_map`` on a
+    one-rank NCCL mesh on the card against ``moe_ragged`` there: outputs
+    and the gradients of x and every parameter in f32 (TF32 off; one
+    rank: E_loc = E and cap >= T*k, nothing dropped)."""
+    from repro_torch.models import moe as me
+    cfg, p, x = _moe_case()
+    fn = me.moe_fsliced_ragged if variant == "fsliced" else me.moe_ep_ragged
+    ct = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for run in (lambda q, y: fn(q, y, cfg, mesh=one_rank_mesh,
+                                    dp_axes=("data",)).full_tensor(),
+                    lambda q, y: me.moe_ragged(q, y, cfg)):
+            q = {k: v.cuda().requires_grad_(True) for k, v in p.items()}
+            y = x.cuda().requires_grad_(True)
+            out = run(q, y)
+            gr = torch.autograd.grad((out * ct.cuda()).sum(),
+                                     [y] + [q[k] for k in sorted(q)])
+            outs.append([t.detach().cpu() for t in (out, *gr)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    for a, b in zip(outs[1], outs[0]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+def test_paged_attention_local_on_one_card_is_decode_attention(
+        one_rank_mesh):
+    """``paged_attention_local`` on a one-rank mesh on the card (the
+    rebased block table is the table itself) against the scatter and
+    ``kernels/ops.paged_attention`` that ``decode_attention`` runs: the
+    same kernel, so output and pools bit for bit; one launch of the
+    paged-attention kernel each."""
+    from repro_torch.distributed.paged_attention import paged_attention_local
+    from repro_torch.kernels import ops
+    B, H, KVH, D, P, PPS = 8, 16, 2, 128, 16, 8
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(B, H, D, generator=g).to(torch.bfloat16).cuda()
+    kp = torch.randn(B * PPS, P, KVH, D, generator=g).to(torch.bfloat16) \
+        .cuda()
+    vp = torch.randn(kp.shape, generator=g).to(torch.bfloat16).cuda()
+    bt = torch.arange(B * PPS, dtype=torch.int32).reshape(B, PPS).cuda()
+    lens = torch.randint(1, P * PPS - 1, (B,), generator=g,
+                         dtype=torch.int32).cuda()
+    start = torch.zeros(B, dtype=torch.int32).cuda()
+    kn = torch.randn(B, KVH, D, generator=g).to(torch.bfloat16).cuda()
+    vn = torch.randn(B, KVH, D, generator=g).to(torch.bfloat16).cuda()
+    k1, v1 = kp.clone(), vp.clone()
+    rows = torch.arange(B, device="cuda")
+    page = bt[rows, lens.long() // P].long()
+    k1[page, lens.long() % P] = kn
+    v1[page, lens.long() % P] = vn
+    build.reset_launches()
+    want = ops.paged_attention(q, k1, v1, bt, lens + 1, start,
+                               scale=D ** -0.5)
+    one = dict(build.LAUNCHES)
+    build.reset_launches()
+    out, k2, v2 = paged_attention_local(
+        q, kp, vp, bt, lens, start, kn, vn, mesh=one_rank_mesh,
+        batch_axes=("data",), kv_head_axis="model", head_dim_axis=None,
+        page_size=P, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out.full_tensor(), want)
+    assert torch.equal(k2.to_local(), k1) and torch.equal(v2.to_local(), v1)
+    assert k2.to_local().data_ptr() == kp.data_ptr()     # in place
+    assert dict(build.LAUNCHES) == one and sum(one.values()) > 0

@@ -150,7 +150,10 @@ def test_port_imports_neither_jax_nor_reference():
     assert {"repro_torch.train.optimizer", "repro_torch.train.checkpoint",
             "repro_torch.train.train_loop", "repro_torch.data.pipeline",
             "repro_torch.distributed.compression",
-            "repro_torch.launch.train"} <= set(modules)
+            "repro_torch.launch.train", "repro_torch.compat",
+            "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.pipeline",
+            "repro_torch.distributed.paged_attention"} <= set(modules)
     assert {"repro_torch.train.train_loop",
             "repro_torch.configs"} <= set(
         _imports_of(ROOT / "examples" / "torch_train_lm.py"))

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port of Honeycomb once on one NVIDIA GPU.
 
 Builds the port's nine CUDA kernels from the seven sources in this
-checkout (one ``nvcc`` per source, all started together), then drives nine
+checkout (one ``nvcc`` per source, all started together), then drives ten
 numbered paths, the store's at the paper's node geometry (the default
 ``HoneycombConfig``: 32 B keys, 16 B values, 1273-word node images), each
 with every kernel's launch count set to 0 just before it and read just
@@ -173,6 +173,35 @@ after:
    on one stage over 2 of qwen's superblocks, 4 microbatches of 1 x 512,
    bit-equal to the superblocks run in sequence.  One rank only: the
    multi-rank cases are held on the CPU in gloo worlds.
+10. The dry run (``dryrun_path``), after path 9's world is destroyed:
+   (a) ``launch/dryrun.run_cell`` traces qwen2.5-3b's ``train_4k`` and
+   ``decode_32k`` at full size for rank 0 of the (16, 16) production mesh
+   in a fake world of 256 ranks, on the card machine's CPU in this
+   process, with nothing allocated on the card and nothing sent: each
+   cell's data-sheet roofline terms, collective counts and bytes and peak
+   bytes per rank print, its status must be ok, its FLOPs above 0 and a
+   collective counted.  (b) qwen2.5-3b at full widths and depth (random
+   bf16 parameters from ``--seed``) trained through ``build_step`` on a
+   (1, 1) mesh of a one-rank NCCL world, train_4k's batch cut to 4 x
+   4,096 tokens in 4 microbatches as in path 8: one step under
+   ``FlopCounterMode`` whose FLOPs must equal, exactly, the count of
+   that cell on a (1, 1) fake world traced after (a), then two timed
+   steps, which must launch no hand kernel; the count's peak bytes print
+   beside the measured peak allocation, its roofline bound beside the
+   measured step.  (c) One shard of the paper's store at the deployment's
+   size (128M items over 256 shards: 500,000 keys,
+   ``launch/store_dryrun.live_shard``), about 256 rows written and staged
+   as one delta (one row-scatter launch) and one GET batch of 512
+   through the store (one fused GET launch), every answer the host
+   tree's: these launches are the ``dryrun`` column.  Then the
+   staged snapshot and a second ``apply_snapshot_delta`` must equal the
+   plain row scatter, and the fused GET its plain walk, bit for bit; the
+   export stage (one ``apply_snapshot_delta``) and the read stage (the GET
+   batch) are timed by profiler device time with the L2 flushed
+   (``store_dryrun.pipeline_stages``), and the epoch pipeline's serial and
+   pipelined times, speedup, occupancy and bottleneck, the live image
+   against the abstract shard's 14,681 rows, the delta's bytes and the
+   allocator's peak rise over one apply print.
 
 Then each kernel is held against its plain PyTorch version on the card at
 the shapes its path gave it; the log replay also at D = 1, 32, 1,024 and
@@ -237,6 +266,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.launch.devtime import (  # noqa: E402
+    by_name, device_all_ms, device_events)
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
 BATCH = 256                     # requests per device read batch
@@ -405,6 +436,27 @@ MESH_DECODE_NEW = 16
 PIPE_SUPERBLOCKS = 2
 PIPE_MICRO = 4
 PIPE_TOKENS = 512
+# path 10, the dry run.  (a) qwen2.5-3b's train_4k and decode_32k traced
+# for rank 0 of the (16, 16) production mesh in a fake world of 256 ranks on
+# the card machine's CPU, in this process after path 9; (b) qwen2.5-3b at
+# full widths and depth trained through build_step on a (1, 1) mesh of a
+# one-rank NCCL world, train_4k's batch of 256 cut to 4 as in path 8, one
+# step under FlopCounterMode and two timed, its FLOPs held equal to the
+# same cell's count on a (1, 1) fake world (traced after (a)); (c) one
+# shard of the paper's store at the deployment's size, 128M items over
+# 256 shards = 500,000 keys, its export stage (one apply_snapshot_delta of
+# about 256 dirty rows) and read stage (one fused GET batch of 512) timed
+DRYRUN_ARCH = "qwen2.5-3b"
+DRYRUN_CELLS = ("train_4k", "decode_32k")
+DRYRUN_SEQ = 4096
+DRYRUN_BATCH = 4
+DRYRUN_ACCUM = 4
+DRYRUN_STEPS = 2
+STORE_ITEMS = 128_000_000
+STORE_SHARDS = 256
+STORE_SHARD_KEYS = STORE_ITEMS // STORE_SHARDS
+STORE_DIRTY_ROWS = 256
+STORE_BATCH = 512
 # entries of the log replay's checks against its plain version; then
 # (entries, position of the bad pair) of its rejected calls
 REPLAY_CHECK_D = (1, 29, 1000, 4000)
@@ -452,53 +504,11 @@ def cuda_ms(fns: list, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-# Idle time traced before and after the window.  The profiler keeps only
-# the device activities inside its capture range, and it places them on
-# the host's clock; that placement has been seen shifted earlier by
-# milliseconds, so the first launches of an unguarded trace fell before
-# the range and were lost (scripts/torch_profiler_drops.py measures it).
-TRACE_GUARD_S = 0.05
-
-
-def device_events_raw(fn, guard_s: float = TRACE_GUARD_S):
-    """Run ``fn`` under torch.profiler, inside a ``smoke_window``
-    annotation, and return the trace's events.  The trace opens
-    ``guard_s`` before the window, with the device idle, and closes as
-    long after it."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(guard_s)
-        with record_function("smoke_window"):
-            fn()
-            torch.cuda.synchronize()
-        time.sleep(guard_s)
-    return prof.events()
-
-
-def device_events(fn):
-    """Run ``fn`` under torch.profiler.  Returns the (name, microseconds)
-    of every device activity (kernel, copy, set) it caused, and the
-    microseconds of the whole window on the host's clock."""
-    from torch.autograd import DeviceType
-    evs = device_events_raw(fn)
-    window = next(e.time_range.elapsed_us() for e in evs
-                  if e.name == "smoke_window")
-    # the window's own annotation is mirrored onto the device's timeline
-    return [(e.name, e.time_range.elapsed_us()) for e in evs
-            if e.device_type == DeviceType.CUDA
-            and e.name != "smoke_window"], window
-
-
 def print_activities(events, what: str, top: int = 6) -> None:
     """The device activities of a trace that took the most time, by name:
     count, total and mean microseconds."""
-    by = {}
-    for name, t in events:
-        n, tot = by.get(name, (0, 0.0))
-        by[name] = (n + 1, tot + t)
-    for name, (n, tot) in sorted(by.items(), key=lambda x: -x[1][1])[:top]:
+    for name, (n, tot) in sorted(by_name(events).items(),
+                                 key=lambda x: -x[1][1])[:top]:
         print(f"  {what}: {n} x {name[:90]!r}, {tot:.1f} us in all, "
               f"{tot / n:.2f} us each")
 
@@ -511,7 +521,7 @@ def device_ms(fns: list, reps: int, match: str, flush: torch.Tensor,
     from the profiler's trace.  ``flush`` (larger than the 50 MB L2) is
     overwritten before each call, because the main path finds its data
     cold.  The host's work around the launches is left out.  Should the
-    profiler still lose device events (``device_events_raw`` guards the
+    profiler still lose device events (``launch/devtime`` guards the
     trace's ends against the loss seen so far), a trace holding fewer
     than ``min_traced`` of the launches is taken again, up
     to ``tries`` traces, each retake half as long as the trace before (at
@@ -539,49 +549,6 @@ def device_ms(fns: list, reps: int, match: str, flush: torch.Tensor,
             return sum(us) / len(us) * per_call / 1e3
     raise SmokeFailure(f"the profiler traced {len(us)} launches of {match} "
                        f"for {n} launches in the last of {tries} traces")
-
-
-_FILL_NAMES = {}    # id(flush) -> the names of its fill kernels
-
-
-def device_all_ms(fns: list, reps: int, flush: torch.Tensor,
-                  min_traced: float = 0.9, tries: int = 3) -> float:
-    """Mean device time per call of EVERY device activity that ``fns``
-    cause (a library call may launch several kernels), from the
-    profiler's trace, with ``flush`` overwritten before each call; the
-    flush's own fill is told apart by its name and left out.  A trace
-    holding fewer than ``min_traced`` of the fills is taken again; the mean
-    is over the calls whose fill the trace holds."""
-    # the flush's fill kernels by name, filled as the run fills, probed once
-    # a flush tensor (every trace is one more chance for the profiler to
-    # drop events); a probe trace that the profiler dropped whole is taken
-    # again
-    fill = _FILL_NAMES.get(id(flush), set())
-    for _ in range(tries):
-        if fill:
-            break
-        fill = {name for name, _ in device_events(
-            lambda: [flush.fill_(r) for r in range(8)])[0]}
-    check(bool(fill), f"the profiler traced no flush fill, in each of "
-          f"{tries} traces")
-    _FILL_NAMES[id(flush)] = fill
-    for fn in fns:
-        fn()
-
-    def run():
-        for r in range(reps):
-            flush.fill_(r)
-            fns[r % len(fns)]()
-    for _ in range(tries):
-        evs = device_events(run)[0]
-        fills = sum(1 for name, _ in evs if name in fill)
-        if fills >= reps * min_traced:
-            return sum(t for name, t in evs if name not in fill) \
-                / fills / 1e3
-    print(f"  the flush's fills: {sorted(fill)}", file=sys.stderr)
-    print_activities(evs, "untimed trace", top=12)
-    raise SmokeFailure(f"the profiler traced {fills} of {reps} calls, in "
-                       f"each of {tries} traces")
 
 
 def image_clone_ms(image: torch.Tensor) -> float:
@@ -636,6 +603,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    return run_paths(args)
+
+
+def run_paths(args) -> int:
+    """Every path in turn (see the module docstring); returns 0 or
+    raises."""
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -720,6 +693,12 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_launches = mesh_path(args, dev, card)
     print(f"mesh path with its checks: {time.perf_counter() - t0:.3f} s")
+    print("== the dry run: qwen2.5-3b traced on a fake 256-rank world, its "
+          "train step on the card against the count, the store's pipeline "
+          "stages at 500,000 keys ==")
+    t0 = time.perf_counter()
+    dryrun_launches = dryrun_path(args, dev, card)
+    print(f"dry-run path with its checks: {time.perf_counter() - t0:.3f} s")
     print("== kernel check: every entry point of kernels/ops.py ==")
     t0 = time.perf_counter()
     kernel_check_phase(dev)
@@ -735,7 +714,8 @@ def main() -> int:
                    "serving_moe_ssm": moe_ssm_launches[k["name"]],
                    "serving_encdec": encdec_launches[k["name"]],
                    "train": train_launches[k["name"]],
-                   "mesh": mesh_launches[k["name"]]}
+                   "mesh": mesh_launches[k["name"]],
+                   "dryrun": dryrun_launches[k["name"]]}
         check(by_path["train"] == 0, f"{k['name']} launched in training")
         k["launches_by_path"] = by_path
         k["launches"] = sum(by_path.values())
@@ -1012,12 +992,9 @@ def single_shard_path(args, dev, flush):
             rows_read.append(int(marks[0][0].sum()))
             loads.append(marks[0][1])
         loads = torch.cat(loads).float()
-        kw, vw, m = cfg.key_words, cfg.val_words, cfg.max_scan_items
-        io = (BATCH * (kw + 1) * 4 * (1 if name == "fused_get" else 2)
-              + BATCH * 4 * ((vw + 2) if name == "fused_get"
-                             else (2 + m * (kw + vw + 2))))
-        bound_ms = (statistics.mean(rows_read) * IW * 4 + io) \
-            / HBM_BYTES_PER_S * 1e3
+        bound_ms = fused_read.bytes_moved(
+            cfg, statistics.mean(rows_read), BATCH,
+            scan=name == "fused_scan") / HBM_BYTES_PER_S * 1e3
         calls = [lambda x=x: kfn(snap, *x, cfg=cfg) for x in xs]
         plain = [lambda x=x: pfn(snap, *x, cfg=cfg) for x in xs]
         ms = device_ms(calls, 64, "fused_read_kernel", flush)
@@ -1088,7 +1065,7 @@ def single_shard_path(args, dev, flush):
         "row_scatter_kernel", flush)
     src = cases[0][1][:d].contiguous()
     copy = torch.empty_like(src)
-    copy_ms = device_all_ms([lambda: copy.copy_(src)], 64, flush)
+    copy_ms = device_all_ms([lambda: copy.copy_(src)], 64, flush)[0]
     wrapper_ms = cuda_ms(calls, 200)
     plain_ms = cuda_ms([lambda c=c: ref.snapshot_image_scatter_ref(
         work, c[0], c[1]) for c in cases], 50)
@@ -1464,7 +1441,7 @@ def ksu_rsu_path(args, dev, flush, snap, batches):
     plain_ms = cuda_ms([lambda: ref.leaf_merge_ref(
         *merge_in, node_cap=N, log_cap=L)], 16)
     argsort_ms = device_all_ms(
-        [lambda: torch.argsort(rank, dim=1, stable=True)], 64, flush)
+        [lambda: torch.argsort(rank, dim=1, stable=True)], 64, flush)[0]
     # nitems, nlog and both outputs of every leaf, and the back pointer and
     # hint of each live log entry
     io = n_leaves * 4 * (2 + 2 * (N + L)) \
@@ -2936,7 +2913,7 @@ def serving_path(args, dev, flush):
                                               enable_gqa=True)
     sdpa_err = float((sdpa()[:, :, 0].float() - ref.paged_attention_ref(
         q, kp, vp, bt, sl, scale=scale).float()).abs().max())
-    library_ms = device_all_ms([sdpa], 64, flush)
+    library_ms = device_all_ms([sdpa], 64, flush)[0]
     live_pos = int(sl.sum())
     io = live_pos * KVH * D * 2 * kp.element_size() \
         + 2 * q.numel() * q.element_size() \
@@ -3502,7 +3479,7 @@ def paged_pool_check(what, name, cfg, pools, bt, sl, args, dev,
             < sl[:, None])[:, None, None, :]
     library_ms = device_all_ms([lambda: F.scaled_dot_product_attention(
         q[:, :, None], kd, vd, attn_mask=mask, scale=scale,
-        enable_gqa=True)], 64, flush)
+        enable_gqa=True)], 64, flush)[0]
     live_pos = int(sl.sum())
     pages = int((-(-sl.long() // P)).sum())     # each live page id read
     io = live_pos * KVH * D * 2 * kp.element_size() \
@@ -4563,6 +4540,282 @@ def mesh_pipeline(args, dev, params) -> None:
     check(equal and bool(torch.isfinite(got).all()),
           f"pipeline vs sequential: max abs {float((got - want).abs().max())}")
 
+
+
+# ---------------------------------------------------------------- path 10
+def dryrun_path(args, dev, card: str) -> dict:
+    """Path 10: (a) the fake world's two cells and the (1, 1) count of the
+    card's step, traced in this process on the CPU (``dryrun_cells``);
+    (b) the train step on the card against that count (``dryrun_step``),
+    with no launch of a hand kernel; (c) the store's two pipeline stages
+    at the deployment's shard size (``store_stages``), every launch count
+    set to 0 just before its main path and read after: the ``dryrun``
+    column.  Returns (c)'s counts."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one_rank = dryrun_cells()
+    print(f"  the fake world's cells and the (1, 1) count: "
+          f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    dryrun_step(args, dev, card, one_rank)
+    print(f"  the train step on the card: {time.perf_counter() - t0:.3f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches = store_stages(args, dev, card)
+    print(f"  the store's stages: {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
+def dryrun_cells() -> dict:
+    """Path 10 (a), on the CPU of this process with no device touched:
+    ``launch/dryrun.run_cell`` for each of ``DRYRUN_CELLS`` on the (16, 16)
+    production mesh, each cell's roofline terms (seconds derived from the
+    H100 data sheet's rates, not measured), collective counts and bytes,
+    and peak bytes per rank.  Checks: status ok, FLOPs > 0, a collective
+    counted.  Then the count of the card's step (b): the cut train cell
+    traced on a (1, 1) fake world, whose record this returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import ShapeConfig
+    res = {}
+    for name in DRYRUN_CELLS:
+        res[name] = r = dryrun.run_cell(DRYRUN_ARCH, name, False,
+                                        ShardingPolicy(), "dense",
+                                        grad_accum=DRYRUN_ACCUM)
+        rl, m, c = r["roofline"], r["memory"], r["collectives"]
+        check(r["status"] == "ok" and rl["flops"] > 0
+              and sum(c["counts"].values()) > 0,
+              f"dry run of {DRYRUN_ARCH} {name}: {r}")
+        print(f"  {DRYRUN_ARCH} {name} on rank 0 of a fake (16, 16) world, "
+              f"traced in {r['compile_s']} s on the CPU: FLOPs "
+              f"{rl['flops']:.6e} (model {rl['model_flops']:.6e}, useful "
+              f"{rl['useful_ratio']:.4f}), bytes accessed "
+              f"{rl['hbm_bytes']:.6e}, collective bytes "
+              f"{rl['coll_bytes']:.6e}; data-sheet roofline compute "
+              f"{rl['compute_s']:.6e} s, memory {rl['memory_s']:.6e} s, "
+              f"collective {rl['collective_s']:.6e} s, dominant "
+              f"{rl['dominant']}; peak {m['peak_bytes']} B "
+              f"({m['peak_bytes'] / 1e9:.3f} GB) per rank (arguments "
+              f"{m['argument_bytes']}, temporaries {m['temp_bytes']}); "
+              f"collective counts {c['counts']}, bytes {c['bytes']}")
+    print(json.dumps({"dryrun_cells": res}))
+    cfg = get_config(DRYRUN_ARCH)
+    shape = ShapeConfig("train_4k_cut", "train", DRYRUN_SEQ, DRYRUN_BATCH)
+    with dryrun.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        t0 = time.perf_counter()
+        tr = dryrun.trace_cell(cfg, shape, mesh, grad_accum=DRYRUN_ACCUM)
+        return dryrun.cell_record(cfg, shape, "1x1", 1, tr,
+                                  time.perf_counter() - t0)
+
+
+def dryrun_step(args, dev, card: str, counted: dict) -> None:
+    """Path 10 (b): ``DRYRUN_ARCH`` at full widths and depth (random bf16
+    parameters from ``--seed``, f32 AdamW moments) trained through
+    ``build_step`` on a (1, 1) mesh of a one-rank NCCL world: train_4k's
+    4,096-token sequences, its batch of 256 cut to ``DRYRUN_BATCH``, in
+    ``DRYRUN_ACCUM`` microbatches.  One step under ``FlopCounterMode``,
+    then ``DRYRUN_STEPS`` timed.  Gates: the step's FLOPs equal the dry
+    run's count of the same cell (``counted``, a (1, 1) fake world)
+    exactly, and the steps launch no hand kernel (every count set to 0
+    before them is 0 after them, as path 8's ``train`` column).
+    Printed: the dry run's peak bytes beside the measured peak allocation
+    and its rise over the step, and the roofline's max(compute, memory)
+    beside the measured step time."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import optimizer as opt
+    cfg = get_config(DRYRUN_ARCH)
+    shape = ShapeConfig("train_4k_cut", "train", DRYRUN_SEQ, DRYRUN_BATCH)
+    rng = np.random.default_rng(args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            built = steps.build_step(cfg, shape, mesh,
+                                     grad_accum=DRYRUN_ACCUM)
+            params = sc.place(sc.init(tf.schema(cfg), torch.Generator(
+                device=dev).manual_seed(args.seed), dev),
+                built.in_shardings[0], mesh)
+            state = opt.init(params)
+            batches = []
+            for _ in range(DRYRUN_STEPS + 1):
+                t = torch.from_numpy(rng.integers(
+                    0, cfg.vocab, (DRYRUN_BATCH, DRYRUN_SEQ + 1))
+                    .astype(np.int32)).to(dev)
+                batches.append(sc.place(
+                    {"tokens": t[:, :-1].contiguous(),
+                     "labels": t[:, 1:].contiguous()},
+                    built.in_shardings[2], mesh))
+            sync(dev)
+            held = torch.cuda.memory_allocated()
+            build.reset_launches()      # the steps' launch window
+            with FlopCounterMode(display=False) as fc:
+                params, state, m = built.fn(params, state, batches[0])
+                losses = [float(m["loss"])]
+            flops = fc.get_total_flops()
+            step_s = []
+            for b in batches[1:]:
+                sync(dev)
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                params, state, m = built.fn(params, state, b)
+                losses.append(float(m["loss"]))
+                sync(dev)
+                step_s.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            rise = peak - base
+            launched = {k: n for k, n in build.LAUNCHES.items() if n}
+            del params, state, m, batches
+        finally:
+            dist.destroy_process_group()
+    check(not launched, f"the train step launched hand kernels {launched}")
+    mem, rl = counted["memory"], counted["roofline"]
+    check(all(np.isfinite(x) for x in losses), f"losses {losses}")
+    print(f"  {DRYRUN_ARCH} at full size through build_step on a one-rank "
+          f"NCCL world, {DRYRUN_BATCH} x {DRYRUN_SEQ} tokens, "
+          f"{DRYRUN_ACCUM} microbatches: FLOPs of a step on the card "
+          f"{flops} (FlopCounterMode), the dry run's count on a (1, 1) fake "
+          f"world {int(rl['flops'])}; losses {[round(x, 4) for x in losses]}")
+    check(flops == int(rl["flops"]), f"the card step's FLOPs {flops} differ "
+          f"from the dry run's count {int(rl['flops'])}")
+    want_rise = mem["peak_bytes"] - mem["argument_bytes"]
+    bound_s = max(rl["compute_s"], rl["memory_s"])
+    print(f"  memory: the dry run's peak {mem['peak_bytes']} B, measured "
+          f"peak allocation {peak} B (ratio {mem['peak_bytes'] / peak:.4f}); "
+          f"rise above the arguments: the dry run's {want_rise} B, measured "
+          f"{rise} B over the last step (ratio {want_rise / rise:.4f}); "
+          f"{held} B held before the first step")
+    print(f"  time: the roofline's max(compute, memory) {bound_s:.6f} s "
+          f"(data-sheet rates: compute {rl['compute_s']:.6f} s, memory "
+          f"{rl['memory_s']:.6f} s) against the measured step "
+          f"{step_s[-1]:.6f} s (host clock, step {DRYRUN_STEPS + 1}; steps "
+          f"{[round(x, 4) for x in step_s]}), share "
+          f"{bound_s / step_s[-1]:.4f}; card {card}")
+    print(json.dumps({"dryrun_step": {
+        "arch": DRYRUN_ARCH, "batch": DRYRUN_BATCH, "seq": DRYRUN_SEQ,
+        "accum": DRYRUN_ACCUM, "flops_card": flops,
+        "flops_dryrun": rl["flops"], "losses": losses,
+        "peak_bytes_dryrun": mem["peak_bytes"], "peak_allocated": peak,
+        "rise_dryrun": want_rise, "rise_measured": rise,
+        "roofline_s": bound_s, "step_s": step_s, "card": card}}))
+
+
+def store_stages(args, dev, card: str) -> dict:
+    """Path 10 (c): the store dry run's mesh-scale half at the paper's
+    deployment (``launch/store_dryrun.py``).  The main path, every launch
+    count set to 0 just before it: a live shard of ``STORE_SHARD_KEYS``
+    keys loaded in a seeded order and published, about
+    ``STORE_DIRTY_ROWS`` rows written and staged as one delta sync (one
+    row-scatter launch), one GET batch of ``STORE_BATCH`` stored keys
+    through the store (one fused GET launch), each answer equal to the
+    host tree's.  Then, not counted: ``apply_snapshot_delta`` again and the
+    store's own staged snapshot against the plain scatter, and the fused
+    GET against its plain walk, bit for bit; the allocator's peak rise of
+    one apply; both stages timed (``store_dryrun.pipeline_stages``); the
+    occupancy model over the two times; the live S, the delta's bytes
+    and the service's figures beside the abstract shard's."""
+    from repro_torch.core import HoneycombConfig
+    from repro_torch.core.read_path import apply_snapshot_delta
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import store_dryrun as sd
+    cfg = HoneycombConfig()
+    snap_abs, S_abs = sd.abstract_snapshot(cfg, STORE_ITEMS, STORE_SHARDS)
+    # ---- the main path, every launch count set to 0 just before it -------
+    build.reset_launches()
+    t0 = time.perf_counter()
+    store = sd.live_shard(STORE_SHARD_KEYS, "cuda", args.seed)
+    load_s = time.perf_counter() - t0
+    base, delta, staged, d, p = sd.stage_delta(store, STORE_DIRTY_ROWS,
+                                               args.seed)
+    keys, lanes, lens = sd.read_batch(store, STORE_BATCH,
+                                      STORE_SHARD_KEYS, args.seed)
+    answers = store.get_batch(keys)
+    launches = dict(build.LAUNCHES)
+    check(answers == [store.tree.get(k) for k in keys]
+          and None not in answers, "the shard's GET answers differ from "
+          "its host tree's")
+    check(launches["row_scatter"] == 1 and launches["fused_get"] == 1
+          and sum(launches.values()) == 2, f"store launches {launches}")
+    # ---- the kernels against their plain versions (not counted) ----------
+    want = ref.snapshot_image_scatter_ref(base.image.clone(), delta.rows,
+                                          delta.image)
+    again = apply_snapshot_delta(base, delta, cfg=cfg)
+    for name, snap in (("the store's staged snapshot", staged),
+                       ("apply_snapshot_delta", again)):
+        check(torch.equal(snap.image, want)
+              and torch.equal(snap.pagetable, again.pagetable)
+              and torch.equal(snap.cache_image, again.cache_image),
+              f"{name}: the row scatter differs from its plain version")
+    del again, want
+    got, gm = ops.batched_get_fused(staged, lanes, lens, cfg=cfg)
+    plain, pm = ref.batched_get_fused_ref(staged, lanes, lens, cfg=cfg)
+    err = max_abs_err(list(plain) + [pm], list(got) + [gm])
+    check(err == 0 and bool(got.found.all()), f"fused GET of {STORE_BATCH} "
+          f"differs from its plain walk (max abs err {err})")
+    rise = sd.apply_peak_rise(base, delta, cfg)
+    st = sd.pipeline_stages(store, base, delta, lanes, lens)
+    model = sd.pipeline_occupancy_model(st["export_ms"] / 1e3,
+                                        st["read_ms"] / 1e3, d, STORE_BATCH)
+    sync_an = sd.delta_sync_analysis(cfg, snap_abs)
+    service = sd.service_figures(store, lanes, lens)
+    snap = store.export_snapshot()
+    S, IW = snap.image.shape
+    print(f"  live shard: {STORE_SHARD_KEYS} keys loaded in {load_s:.3f} s; "
+          f"image {S} x {IW} words ({store.tree.heap.live_slots} live "
+          f"slots) against the abstract shard's S = {S_abs}; delta: "
+          f"{delta.rows.shape[0]} rows ({d} distinct), "
+          f"{delta.pt_lids.shape[0]} page-table commands ({p} distinct), "
+          f"{sd.tree_bytes(delta)} B (the abstract delta of 256 rows and 64 "
+          f"commands: {sync_an['delta_bytes_per_sync']} B of a "
+          f"{sync_an['full_snapshot_bytes']} B snapshot, ratio "
+          f"{sync_an['traffic_ratio']:.6f}); the allocator's peak rise over "
+          f"one apply_snapshot_delta {rise} B")
+    print(f"  the row scatter (the store's staging and a second apply) and "
+          f"the fused GET of {STORE_BATCH} equal their plain versions bit "
+          f"for bit")
+    print(f"  stages (profiler device time, L2 flushed; card {card}): export "
+          f"{st['export_ms']:.6f} ms, read {st['read_ms']:.6f} ms; serial "
+          f"epoch {model['serial_epoch_s'] * 1e3:.6f} ms, pipelined "
+          f"{model['pipelined_epoch_s'] * 1e3:.6f} ms, speedup "
+          f"{model['pipeline_speedup']:.4f}, occupancy "
+          f"{model['stage_occupancy']}, bottleneck "
+          f"{model['bottleneck_stage']}")
+    for stage in ("export", "read"):
+        for name, (n, us) in sorted(st[f"{stage}_activities"].items(),
+                                    key=lambda x: -x[1][1])[:5]:
+            print(f"    {stage}: {n} x {name[:80]!r}, {us / n:.2f} us each")
+    print(f"  service on one shard: peak {service['peak_gb_per_chip']:.6f} GB "
+          f"per chip (arguments {service['argument_bytes']} B, outputs "
+          f"{service['output_bytes']} B, temporaries "
+          f"{service['temp_bytes']} B measured), collective bytes "
+          f"{service['collective_bytes']}, reads "
+          f"bound {service['reads_per_s_per_chip_bound']:.1f}/s per chip "
+          f"(the fused GET's bytes at the data-sheet 3.35 TB/s)")
+    check(service["collective_bytes"] == 0, f"collectives {service}")
+    print(json.dumps({"store_dryrun": {
+        "shard_keys": STORE_SHARD_KEYS, "image_rows": S,
+        "slots_per_shard": S_abs, "delta_rows": delta.rows.shape[0],
+        "delta_distinct_rows": d, "pt_commands": delta.pt_lids.shape[0],
+        "pt_distinct": p, "delta_bytes": sd.tree_bytes(delta),
+        "apply_peak_rise_bytes": rise, "pipeline": model, "delta_sync":
+        sync_an, **service, "card": card}}))
+    del store, base, delta, staged, snap
+    return launches
 
 if __name__ == "__main__":
     sys.exit(main())

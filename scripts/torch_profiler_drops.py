@@ -1,5 +1,5 @@
 """How often torch.profiler loses device activities at the start of a
-short trace, with and without ``chip_smoke.TRACE_GUARD_S`` of idle time
+short trace, with and without ``launch/devtime.TRACE_GUARD_S`` of idle time
 traced before and after the measured window.
 
 The profiler keeps only the device activities inside its capture range
@@ -25,8 +25,9 @@ from pathlib import Path
 import torch
 from torch.autograd import DeviceType
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import TRACE_GUARD_S, device_events_raw  # noqa: E402
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+from repro_torch.launch.devtime import (  # noqa: E402
+    TRACE_GUARD_S, WINDOW, device_events_raw)
 
 
 def trace(flush, y, calls: int, guard: float) -> dict:
@@ -39,7 +40,7 @@ def trace(flush, y, calls: int, guard: float) -> dict:
             y.add_(0.5)
     evs = device_events_raw(run, guard)
     kernels = [e for e in evs if e.device_type == DeviceType.CUDA
-               and e.name != "smoke_window"]
+               and e.name != WINDOW]
     launches = {e.id: e.time_range.start for e in evs
                 if e.device_type == DeviceType.CPU
                 and "LaunchKernel" in e.name}

@@ -58,10 +58,12 @@ class HoneycombConfig:
     key_words: int = 8          # key lanes (uint32, big-endian) => 32 B max key
     val_words: int = 4          # inline value lanes => 16 B inline values
     min_fill: float = 0.25      # leaf underflow threshold (merge w/ sibling)
+    split_fill: float = 0.5     # target fill of each half after a split
 
     # --- MVCC / GC ----------------------------------------------------------
     mvcc: bool = True           # paper Section 3.2; False => version 0 for all
     max_version_chain: int = 4  # bound on old-version hops a reader may take
+    gc_batch: int = 64          # GC list scan granularity
 
     # --- read path ----------------------------------------------------------
     max_height: int = 8         # static traversal bound of the device reader

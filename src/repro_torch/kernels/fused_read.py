@@ -50,6 +50,22 @@ def smem_bytes(cfg, C: int) -> int:
     return (C + IW + WARPS * warp_words(cfg)) * 4
 
 
+def bytes_moved(cfg, rows_read: float, batch: int, scan: bool = False
+                ) -> float:
+    """The least bytes one GET (or SCAN) batch of ``batch`` requests must
+    move, the kernel's byte bound: the ``rows_read`` distinct image and
+    cache rows its walk reads (the sum of its ``touched`` marks) read
+    once, its keys and lengths (lo and hi for a SCAN) read, and its
+    outputs written: found, length and value (a SCAN: count, trunc and
+    ``max_scan_items`` keys, values and lengths)."""
+    IW = NodeImageLayout.for_config(cfg).image_words
+    KW, VW = cfg.key_words, cfg.val_words
+    keys_in = batch * (KW + 1) * 4 * (2 if scan else 1)
+    out = batch * 4 * ((2 + cfg.max_scan_items * (KW + VW + 2)) if scan
+                       else (VW + 2))
+    return rows_read * IW * 4 + keys_in + out
+
+
 def launcher_smem_bytes(cfg, C: int) -> int:
     """The launcher's own figure for ``smem_bytes`` (builds the kernel's
     library where the CUDA toolkit is installed)."""

@@ -246,11 +246,21 @@ def _local(x, mesh, pl):
     return x.to_local()
 
 
+def _same_memory(a, b) -> bool:
+    """Whether tensors ``a`` and ``b`` are one block of memory: one
+    storage, offset, shape and strides.  (Decided without ``data_ptr``,
+    which a fake tensor does not give: the dry run traces these steps
+    under ``FakeTensorMode``.)"""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset()
+            and a.shape == b.shape and a.stride() == b.stride())
+
+
 def _write_back(view, x, mesh, view_pl) -> None:
     """``view`` (a rank's block of DTensor ``x`` under ``view_pl``, updated
     in place) back into ``x``'s own block, where it is not that block."""
     block = x.to_local()
-    if view.data_ptr() == block.data_ptr():
+    if _same_memory(view, block):
         return
     block.copy_(DTensor.from_local(view, mesh, list(view_pl),
                                    run_check=False)
@@ -294,7 +304,7 @@ def _local_attn(mesh, rules: dict, page_size: int, dp_axes):
             _as_rows(start, mesh, b), _as_rows(k_new, mesh, b),
             _as_rows(v_new, mesh, b), scale=scale, softcap=softcap)
         for pool_, new in ((k_pages, kp), (v_pages, vp)):
-            if new.to_local().data_ptr() != pool_.data_ptr():
+            if not _same_memory(new.to_local(), pool_):
                 pool_.copy_(_local(new, mesh, kv_pl))  # not written in place
         return _local(out, mesh, rows_pl), k_pages, v_pages
     return local_impl

@@ -112,3 +112,8 @@ def shape_by_name(name: str) -> ShapeConfig:
         if s.name == name:
             return s
     raise KeyError(name)
+
+
+def long_context_ok(cfg: ArchConfig) -> bool:
+    """long_500k runs only for sub-quadratic families (DESIGN.md Section 6)."""
+    return cfg.family in ("ssm", "hybrid")

@@ -104,7 +104,7 @@ def moe_ragged(p, x, cfg: ArchConfig):
 
     order = torch.argsort(eid, stable=True)
     xs = xt[order]
-    sizes = torch.bincount(eid, minlength=E).tolist()
+    sizes = _group_sizes(eid, E)
     yy = torch.empty_like(xs)
     lo = 0
     for e, n in enumerate(sizes):
@@ -118,6 +118,20 @@ def moe_ragged(p, x, cfg: ArchConfig):
     inv = torch.argsort(order)
     y = yy[inv] * gates[:, None].to(yy.dtype)
     return y.reshape(B, S, k, d).sum(dim=2).to(x.dtype)
+
+
+def _group_sizes(eid, n_groups: int) -> list[int]:
+    """The rows of each of ``n_groups`` groups of expert ids ``eid``, read
+    back to the host (one sync).  A fake tensor (the dry run's,
+    ``launch/dryrun.py``) holds no ids, so its rows are taken as split
+    evenly over the groups: that moves no ragged product's FLOPs (2 * rows
+    * p * q over all groups together), only the bytes of weights a real
+    split would leave unread."""
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(eid):
+        n = eid.shape[0]
+        return [n // n_groups + (g < n % n_groups) for g in range(n_groups)]
+    return torch.bincount(eid, minlength=n_groups).tolist()
 
 
 # --- ragged FFN with exact ragged gradients ---------------------------------
@@ -227,7 +241,7 @@ def moe_ep_ragged(p, x, cfg: ArchConfig, *, mesh, dp_axes,
         sel = order[:cap]
         sel_valid = valid[sel]
         es = torch.where(sel_valid, eloc[sel], E_loc - 1)
-        group_sizes = torch.bincount(es, minlength=E_loc)
+        group_sizes = _group_sizes(es, E_loc)
         tok = sel // k                       # owning token of each row
         xs = xt[tok]                         # only the capacity rows
         gs = torch.where(sel_valid, gates[sel], 0.0)
@@ -267,7 +281,7 @@ def moe_fsliced_ragged(p, x, cfg: ArchConfig, *, mesh, dp_axes,
         order = torch.argsort(eid, stable=True)      # every row computed
         tok = order // k
         xs = xt[tok]
-        group_sizes = torch.bincount(eid, minlength=E)
+        group_sizes = _group_sizes(eid, E)
 
         yy = _ragged_ffn(xs, wg, wu, wd, group_sizes)  # f-slice partials
         # combine in the model dtype (halves the [T*k, d] buffers and the

@@ -202,15 +202,12 @@ def test_byte_model_matches_reference(geometry):
 def test_default_config_matches_reference():
     assert isinstance(DEFAULT_CONFIG, HoneycombConfig)
     assert DEFAULT_CONFIG == HoneycombConfig()
-    # every field of the port's config equals the reference's; the
-    # reference's split_fill and gc_batch, which none of its code reads,
-    # are not carried
+    # every field of the port's config equals the reference's, key for
+    # key and in order (split_fill and gc_batch too, which no code of
+    # either package reads)
     want = dataclasses.asdict(jconfig.DEFAULT_CONFIG)
-    assert set(want) - set(dataclasses.asdict(DEFAULT_CONFIG)) \
-        == {"split_fill", "gc_batch"}
-    assert dataclasses.asdict(DEFAULT_CONFIG) \
-        == {k: v for k, v in want.items() if k not in ("split_fill",
-                                                       "gc_batch")}
+    assert list(dataclasses.asdict(DEFAULT_CONFIG).items()) \
+        == list(want.items())
     assert {p: getattr(DEFAULT_CONFIG, p) for p in BYTE_MODEL} \
         == {p: getattr(jconfig.DEFAULT_CONFIG, p) for p in BYTE_MODEL}
 

@@ -1735,3 +1735,77 @@ def test_paged_attention_local_on_one_card_is_decode_attention(
     assert torch.equal(k2.to_local(), k1) and torch.equal(v2.to_local(), v1)
     assert k2.to_local().data_ptr() == kp.data_ptr()     # in place
     assert dict(build.LAUNCHES) == one and sum(one.values()) > 0
+
+
+# ----------------------------------------------------------- the dry run
+def test_dry_run_count_equals_the_card_step(cuda, tmp_path):
+    """``launch/dryrun``'s count of qwen2.5-3b at full widths cut to 2
+    layers, trained through ``build_step`` on a (1, 1) fake world, equals
+    the FLOPs of the same step on the card (a one-rank NCCL world)
+    exactly; the loss is finite."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import optimizer as opt
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2)
+    shape = ShapeConfig("t", "train", seq_len=256, global_batch=2)
+    with dryrun.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        counted = dryrun.trace_cell(cfg, shape, mesh, grad_accum=2)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        built = steps.build_step(cfg, shape, mesh, grad_accum=2)
+        params = sc.place(sc.init(tf.schema(cfg), torch.Generator(
+            device=cuda).manual_seed(0), cuda), built.in_shardings[0], mesh)
+        t = torch.randint(0, cfg.vocab, (2, 257), dtype=torch.int32,
+                          device=cuda)
+        batch = sc.place({"tokens": t[:, :-1].contiguous(),
+                          "labels": t[:, 1:].contiguous()},
+                         built.in_shardings[2], mesh)
+        with FlopCounterMode(display=False) as fc:
+            _, _, m = built.fn(params, opt.init(params), batch)
+            loss = float(m["loss"])
+    finally:
+        dist.destroy_process_group()
+    assert fc.get_total_flops() == int(counted.cost["flops"]) > 0
+    assert np.isfinite(loss)
+
+
+def test_store_pipeline_stages_on_cuda(cuda):
+    """The store dry run's mesh-scale half on the card at a small shard:
+    the staged delta and a second apply equal the plain row scatter, the
+    fused GET its plain walk, both stages are timed and the occupancy
+    model reads them."""
+    from repro_torch.core.read_path import apply_snapshot_delta
+    from repro_torch.kernels import ops
+    from repro_torch.launch import store_dryrun as sd
+    store = sd.live_shard(3000, "cuda")
+    base, delta, staged, d, p = sd.stage_delta(store, 64)
+    assert d >= 56 and delta.rows.shape[0] >= d
+    want = ref.snapshot_image_scatter_ref(base.image.clone(), delta.rows,
+                                          delta.image)
+    assert torch.equal(staged.image, want)
+    again = apply_snapshot_delta(base, delta, cfg=store.cfg)
+    assert torch.equal(again.image, want)
+    assert torch.equal(again.cache_image, staged.cache_image)
+    keys, lanes, lens = sd.read_batch(store, 64, 3000)
+    got, gm = ops.batched_get_fused(staged, lanes, lens, cfg=store.cfg)
+    plain, pm = ref.batched_get_fused_ref(staged, lanes, lens,
+                                          cfg=store.cfg)
+    _assert_equal(plain, got)
+    assert torch.equal(gm, pm) and bool(got.found.all())
+    assert sd.apply_peak_rise(base, delta, store.cfg) \
+        >= base.image.numel() * 4
+    st = sd.pipeline_stages(store, base, delta, lanes, lens, reps=8)
+    assert st["export_ms"] > 0 and st["read_ms"] > 0
+    r = sd.mesh_scale(device="cuda", shard_keys=3000)
+    assert r["pipeline"]["pipelined_epoch_s"] == max(
+        r["pipeline"]["export_stage_s"], r["pipeline"]["read_stage_s"]) > 0
+    assert r["temp_bytes"] is not None and r["collective_bytes"] == 0

@@ -153,7 +153,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.launch.train", "repro_torch.compat",
             "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
             "repro_torch.distributed.pipeline",
-            "repro_torch.distributed.paged_attention"} <= set(modules)
+            "repro_torch.distributed.paged_attention",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.hlo_analysis"} <= set(modules)
     assert {"repro_torch.train.train_loop",
             "repro_torch.configs"} <= set(
         _imports_of(ROOT / "examples" / "torch_train_lm.py"))

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import os
 import re
 import subprocess
@@ -128,9 +129,21 @@ def test_live_smoke_meters(runs):
     assert rep["served_replica_lanes"] == [0, 1]
 
 
-def test_store_dryrun_main_writes_results(tmp_path):
+def test_store_dryrun_main_writes_results(tmp_path, monkeypatch):
+    # main's live shard is the deployment's 500,000 keys; here a small one
+    monkeypatch.setattr(td, "mesh_scale",
+                        functools.partial(td.mesh_scale, shard_keys=3000))
     out = td.main(["--device", "cpu", "--out", str(tmp_path)])
-    assert set(out) == {"live_sharded_store", "live_replicated_store"}
+    # the live smokes beside the mesh-scale half (on the CPU its stages
+    # are not timed)
+    assert set(out) == {"live_sharded_store", "live_replicated_store",
+                        "workload", "slots_per_shard", "live_shard",
+                        "peak_gb_per_chip", "argument_bytes",
+                        "output_bytes", "temp_bytes", "collective_bytes",
+                        "reads_per_s_per_chip_bound", "delta_sync",
+                        "pipeline"}
+    assert out["slots_per_shard"] == 14_681 and out["pipeline"] is None
+    assert out["live_shard"]["keys"] == 3000
     assert {p.name for p in tmp_path.iterdir()} == {
         "torch_store_dryrun.json", "torch_store_dryrun_metrics.json",
         "torch_store_dryrun_trace.json"}

@@ -571,10 +571,11 @@ class StoreShard:
         s.heap_gathers += hg
         s.lb_routed += lr
 
-    def _snapshot_for_read(self) -> TreeSnapshot:
+    def snapshot_for_read(self) -> TreeSnapshot:
         """The snapshot device batches execute against.  "explicit" policy
         reads the resident (possibly stale, always consistent) snapshot;
-        the other policies sync lazily here."""
+        the other policies sync lazily here.  The first half of a batched
+        read: ``get_batch(keys, snap)`` is the second."""
         if self.cfg.sync_policy == "explicit" and self._snapshot is not None:
             return self._snapshot
         return self.export_snapshot()
@@ -587,12 +588,16 @@ class StoreShard:
             return self._snapshot_rv
         return None
 
-    def get_batch(self, keys: Sequence[bytes]) -> list[bytes | None]:
-        """Batched GET on the device path, epoch-stamped."""
+    def get_batch(self, keys: Sequence[bytes],
+                  snap: TreeSnapshot | None = None) -> list[bytes | None]:
+        """Batched GET on the device path, epoch-stamped, against ``snap``
+        (from ``snapshot_for_read``), by default the one it gives now."""
         keys = list(keys)
         if not keys:
             return []
-        return self._device_get(self._snapshot_for_read(), keys)
+        if snap is None:
+            snap = self.snapshot_for_read()
+        return self._device_get(snap, keys)
 
     def _device_get(self, snap: TreeSnapshot, keys: list[bytes],
                     read_backend: str | None = None) -> list[bytes | None]:
@@ -636,7 +641,7 @@ class StoreShard:
         ranges = list(ranges)
         if not ranges:
             return []
-        snap = self._snapshot_for_read()
+        snap = self.snapshot_for_read()
         return self._device_scan(snap, ranges, self._fallback_read_version())
 
     def _device_scan(self, snap: TreeSnapshot,

@@ -18,6 +18,14 @@ histograms and sampled per-request lifecycle tracing (port of
   * Exporters — Prometheus text (``to_prometheus``, read back by
     ``parse_prometheus``/``prom_value``), a JSON snapshot, and Chrome
     trace-event JSON (``chrome_trace_events``, loadable in Perfetto).
+  * ``SpanRing``/``SPANS`` — the process-wide ring of the serving path's
+    spans (the engine's tick, prefill and decode, the page table's
+    calls), each ``Span`` tagged with its id, its parent's id and its
+    counts; the five names of ``PROFILER_RANGES`` also open a
+    ``torch.profiler`` range while a capture is active.
+    ``to_profiler_ns`` maps a ``CLOCK`` reading onto the profiler's host
+    timeline (the Unix epoch), so ``SpanRing.chrome_trace`` lays the
+    spans beside a profiler export.
   * ``Clock``/``CLOCK`` — THE injectable monotonic clock every timing site
     reads (shard, replica and scheduler alias it as ``_now``), and
     ``merge_stats``, the one aggregation path of the router and the
@@ -47,9 +55,11 @@ from .config import TelemetryConfig
 
 __all__ = [
     "CLOCK", "Clock", "Counter", "Gauge", "Histogram", "MetricSample",
-    "MetricsRegistry", "Span", "Telemetry", "Trace", "Tracer",
-    "chrome_trace_events", "merge_stats", "parse_prometheus", "prom_value",
-    "samples_from",
+    "MetricsRegistry", "OpenSpan", "PROFILER_RANGES",
+    "SPANS", "SPAN_CAPACITY", "Span", "SpanRing", "Telemetry", "Trace",
+    "Tracer", "chrome_trace_events", "merge_stats", "parse_prometheus",
+    "profiler_offset_ns", "prom_value", "samples_from", "span",
+    "timed_span", "to_profiler_ns",
 ]
 
 
@@ -523,6 +533,14 @@ class Tracer:
                  {"layer": "tracer"})]
 
 
+def _complete_event(s: Span, cat: str, pid: int, tid: int, args: dict,
+                    ts_us: float) -> dict:
+    """One Chrome complete ("ph": "X") event of span ``s``."""
+    return {"name": s.name, "ph": "X", "cat": cat, "ts": ts_us,
+            "dur": max((s.t1 - s.t0) * 1e6, 0.0), "pid": pid, "tid": tid,
+            "args": args}
+
+
 def chrome_trace_events(traces: Iterable[Trace]) -> dict:
     """Chrome trace-event JSON (Perfetto / chrome://tracing loadable):
     one complete ("ph": "X") event per span, pid = shard, tid = rid,
@@ -530,13 +548,231 @@ def chrome_trace_events(traces: Iterable[Trace]) -> dict:
     evs = []
     for t in traces:
         for s in t.spans:
-            evs.append({
-                "name": s.name, "ph": "X", "cat": t.kind,
-                "ts": s.t0 * 1e6, "dur": max((s.t1 - s.t0) * 1e6, 0.0),
-                "pid": int(t.tags.get("shard", 0)), "tid": t.rid,
-                "args": {**t.tags, **s.tags, "rid": t.rid, "kind": t.kind},
-            })
+            evs.append(_complete_event(
+                s, t.kind, int(t.tags.get("shard", 0)), t.rid,
+                {**t.tags, **s.tags, "rid": t.rid, "kind": t.kind},
+                s.t0 * 1e6))
     return {"traceEvents": evs, "displayTimeUnit": "ms"}
+
+
+# ------------------------------------------------------- the span ring
+#: The ring's size: a serving window of 50 s holds some 15-40 thousand
+#: spans (10-30 a tick), so the window and the traced tail after it fit
+#: with room to spare.
+SPAN_CAPACITY = 1 << 18
+
+#: The spans that also open a ``torch.profiler`` range while a capture is
+#: active, under the same name: the serving engine's two phases and the
+#: page table's three calls.  No other span does: a range that encloses
+#: kernels is mirrored onto the device timeline, where an unknown name
+#: would read as device activity.
+PROFILER_RANGES = frozenset({"engine.prefill", "engine.decode",
+                             "page_table.lookup", "page_table.put",
+                             "page_table.free"})
+
+_profiler = None          # torch.autograd.profiler, imported on first use
+
+
+def _profiler_range(name: str):
+    """An entered ``record_function(name)`` while a profiler capture is
+    active, else None."""
+    global _profiler
+    if _profiler is None:
+        from torch.autograd import profiler
+        _profiler = profiler
+    if not _profiler._is_profiler_enabled:
+        return None
+    rf = _profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+_offset_ns: int | None = None
+
+
+def profiler_offset_ns() -> int:
+    """Nanoseconds from ``time.perf_counter``, which ``CLOCK`` reads, to
+    the profiler's host clock, the Unix epoch (``time.time_ns``): read
+    once, from the tightest of 32 back-to-back readings."""
+    global _offset_ns
+    if _offset_ns is None:
+        best = None
+        for _ in range(32):
+            a = time.perf_counter_ns()
+            wall = time.time_ns()
+            b = time.perf_counter_ns()
+            if best is None or b - a < best[0]:
+                best = (b - a, wall - (a + b) // 2)
+        _offset_ns = best[1]
+    return _offset_ns
+
+
+def to_profiler_ns(t: float) -> int:
+    """A ``CLOCK`` reading (seconds) on the profiler's timeline: the
+    nanoseconds of ``start_ns()`` in ``kineto_results.events()``."""
+    return round(t * 1e9) + profiler_offset_ns()
+
+
+class OpenSpan:
+    """One span while it runs: ``with`` opens and closes it.  Its id and
+    the id of the span it opened inside (0 for none) go into ``tags``
+    beside what the site tags; ``t0``/``t1`` are ``CLOCK`` readings."""
+
+    __slots__ = ("ring", "name", "tags", "t0", "t1", "_range")
+
+    def __init__(self, ring: "SpanRing", name: str, tags: dict):
+        self.ring, self.name, self.tags = ring, name, tags
+
+    def tag(self, **tags) -> None:
+        self.tags.update(tags)
+
+    def __enter__(self) -> "OpenSpan":
+        ring = self.ring
+        ring._next_id = sid = ring._next_id + 1
+        tags = self.tags
+        tags["id"] = sid
+        tags["parent"] = ring._open
+        ring._open = sid
+        self._range = (_profiler_range(self.name)
+                       if self.name in PROFILER_RANGES else None)
+        self.t0 = ring.clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        ring = self.ring
+        self.t1 = t1 = ring.clock()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        tags = self.tags
+        ring._open = tags["parent"]
+        ring._append((self.name, self.t0, t1, tags))
+
+
+class _NoSpan:
+    """What a site opens with telemetry off: records nothing."""
+
+    __slots__ = ()
+
+    def tag(self, **tags) -> None:
+        pass
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Timer(_NoSpan):
+    """What a timed site opens with telemetry off: records nothing, but
+    reads ``CLOCK`` at its ends."""
+
+    __slots__ = ("t0", "t1")
+
+    def __enter__(self) -> "_Timer":
+        self.t0 = CLOCK()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.t1 = CLOCK()
+
+
+class SpanRing:
+    """The program's spans, newest last, in a bounded ring that drops the
+    oldest.  Spans are appended as they close, so the ring runs in order
+    of ``t1``; ``dropped`` counts what fell out and ``dropped_t1`` is the
+    latest end among it, so a reader knows whether a window is whole.
+    A span is kept as the plain tuple ``(name, t0, t1, tags)``, the least
+    a site pays to record it; ``window`` and ``spans`` hand them out as
+    ``Span``s."""
+
+    def __init__(self, capacity: int = SPAN_CAPACITY,
+                 clock: Clock | None = None):
+        assert capacity >= 1
+        self._ring: deque[tuple] = deque(maxlen=capacity)
+        self.clock = clock or CLOCK
+        self.dropped = 0
+        self.dropped_t1 = -math.inf
+        self._next_id = 0               # the last id given
+        self._open = 0                  # the id of the innermost open span
+
+    @property
+    def capacity(self) -> int:
+        return self._ring.maxlen
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    def spans(self) -> list[Span]:
+        """Every span held, oldest end first."""
+        return [Span(*s) for s in self._ring]
+
+    def add(self, name: str, t0: float, t1: float, **tags) -> None:
+        """A span timed elsewhere (``request.queue``), with no parent."""
+        self._next_id = sid = self._next_id + 1
+        self._append((name, t0, t1, {"id": sid, "parent": 0, **tags}))
+
+    def _append(self, span: tuple) -> None:
+        ring = self._ring
+        if len(ring) == ring.maxlen:
+            self.dropped += 1
+            self.dropped_t1 = max(self.dropped_t1, ring[0][2])
+        ring.append(span)
+
+    def window(self, t0: float, t1: float) -> list[Span] | None:
+        """The spans that end in (``t0``, ``t1``], or None where the ring
+        dropped any of them."""
+        if self.dropped_t1 > t0:
+            return None
+        return [Span(*s) for s in self._ring if t0 < s[2] <= t1]
+
+    def clear(self) -> None:
+        self._ring.clear()
+        self.dropped, self.dropped_t1 = 0, -math.inf
+
+    def collect(self) -> list[tuple]:
+        lab = {"layer": "spans"}
+        return [("spans_held", "gauge", len(self._ring), lab),
+                ("spans_dropped", "counter", self.dropped, lab)]
+
+    def chrome_trace(self, base_ns: int = 0) -> dict:
+        """The ring as Chrome trace-event JSON on the profiler's timeline:
+        ``ts`` in microseconds from ``base_ns`` on the Unix epoch.  Given
+        the ``baseTimeNanoseconds`` of a ``prof.export_chrome_trace``
+        file, its events and these share one time axis, so the two
+        ``traceEvents`` lists concatenated load as one Perfetto view.
+        The ticks' spans nest on pid 0, tid 0; each request's queue wait
+        is on pid 1, tid = its rid."""
+        evs = []
+        for s in self.spans():
+            rid = s.tags.get("rid", 0)
+            pid, tid = (1, rid) if s.name == "request.queue" else (0, 0)
+            evs.append(_complete_event(
+                s, s.name.split(".")[0], pid, tid, dict(s.tags),
+                (to_profiler_ns(s.t0) - base_ns) / 1e3))
+        return {"traceEvents": evs, "displayTimeUnit": "ms",
+                "baseTimeNanoseconds": base_ns}
+
+
+#: The process-wide span ring the serving path records into
+#: (``ServingEngine(telemetry=...)``) and the benchmark reads.
+SPANS = SpanRing()
+
+
+def span(ring: SpanRing | None, name: str, **tags):
+    """``with span(ring, name, **tags) as sp:`` at a site whose ring is
+    None with telemetry off (the one ``is None`` branch of the site)."""
+    return _NO_SPAN if ring is None else OpenSpan(ring, name, tags)
+
+
+def timed_span(ring: SpanRing | None, name: str, **tags):
+    """``span`` at a site that times itself by its span: with telemetry
+    off it records nothing but still reads ``CLOCK`` at its ends, so
+    ``sp.t1 - sp.t0`` is the site's seconds either way."""
+    return _Timer() if ring is None else OpenSpan(ring, name, tags)
 
 
 # ------------------------------------------------------------------ bundle

@@ -3,16 +3,20 @@ port of ``repro.launch.serve``: the same arguments, plus ``--device``.
 
 Smoke scale, on the GPU or the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
-      --smoke --requests 8 [--device cpu]
+      --smoke --requests 8 [--device cpu] [--trace spans.json]
+
+``--trace`` writes the engine's spans (core/telemetry.SPANS) as Chrome
+trace-event JSON on the profiler's timeline, for Perfetto.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 
 from ..configs import get_config, get_smoke_config
-from ..core.telemetry import CLOCK
+from ..core.telemetry import CLOCK, SPANS
 from ..serving.engine import ServingEngine
 
 
@@ -26,6 +30,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="write the spans as Chrome trace-event JSON")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -47,6 +53,10 @@ def main(argv=None):
           f"merges={eng.kv.table.stats.merges}")
     for rid, toks in list(outs.items())[:3]:
         print(f"  rid {rid}: {toks}")
+    if args.trace:
+        with open(args.trace, "w") as f:
+            json.dump(SPANS.chrome_trace(), f)
+        print(f"spans: {len(SPANS)} written to {args.trace}")
     return outs
 
 

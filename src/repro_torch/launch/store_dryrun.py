@@ -372,7 +372,7 @@ def live_sharded_smoke(shards: int = 4, n_items: int = 1024,
     for i, sh in enumerate(st.shards):
         pk = [int_key(int(k)) for k in
               rng.integers(i * span_per_shard, (i + 1) * span_per_shard, 16)]
-        snap = sh._snapshot_for_read()
+        snap = sh.snapshot_for_read()
         assert sh._device_get(snap, pk) == \
             sh._device_get(snap, pk, read_backend="reference"), \
             f"fused GET diverged from reference on shard {i}"

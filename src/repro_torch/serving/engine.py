@@ -25,6 +25,18 @@ its ``xattn`` leaves unused.  Embeddings and encoder outputs go through
 
 The model and KV pools live on ``device`` (``"cuda"`` unless the caller
 passes ``"cpu"``, which runs every kernel's plain version).
+
+With ``telemetry`` enabled (the default) every tick records its spans in
+the process-wide ring ``core/telemetry.SPANS``, each child holding its
+parent's id: ``engine.step`` over ``engine.admit``, ``engine.prefill``
+(``page_table.put`` a page, ``model.prefill``, ``engine.kv_write``,
+``engine.sync``) and ``engine.decode`` (``page_table.reserve``,
+``page_table.lookup``, ``engine.h2d``, ``model.decode``, ``engine.sync``,
+``page_table.free``), and per request ``request.queue``, from ``submit``
+to the start of its prefill.  No span waits on the device: the only
+waits are the program's own (``engine.sync``).  Disabled, it records
+nothing; ``prefill_s``/``decode_s`` are the same spans' seconds either
+way.
 """
 from __future__ import annotations
 
@@ -33,11 +45,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.telemetry import CLOCK
+from ..core.config import TelemetryConfig
+from ..core.telemetry import CLOCK, SPANS, span, timed_span
 from ..models import schema as sc
 from ..models import transformer as tf
 from ..models.config import ArchConfig
-from .kv_cache import PagedKVCache, page_key
+from .kv_cache import PagedKVCache
 
 _now = CLOCK
 
@@ -56,7 +69,8 @@ class Request:
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, params=None, *, batch_size: int = 4,
                  max_seq: int = 256, page_size: int = 32, seed: int = 0,
-                 device="cuda"):
+                 device="cuda",
+                 telemetry: TelemetryConfig = TelemetryConfig()):
         if max_seq % page_size:
             raise ValueError(f"max_seq {max_seq} is not a multiple of the "
                              f"page size {page_size}")
@@ -76,8 +90,11 @@ class ServingEngine:
         else:
             params = sc.map_tree(lambda t: t.to(self.device), params)
         self.model = tf.Transformer(cfg, params)
+        # the span ring, or None with telemetry off
+        self._spans = SPANS if telemetry.enabled else None
         n_pages = batch_size * self.pps + 1     # +1: reserved scratch page 0
-        self.kv = PagedKVCache(n_pages, page_size, device=self.device)
+        self.kv = PagedKVCache(n_pages, page_size, device=self.device,
+                               spans=self._spans)
         self.kv.free_pages = list(range(n_pages - 1, 0, -1))  # reserve 0
         cache_tree = sc.stack(
             cfg.n_superblocks,
@@ -94,10 +111,11 @@ class ServingEngine:
         self._slots: list[int | None] = [None] * batch_size
         self._requests: dict[int, Request] = {}
         self._next_rid = 0
+        self._submit_t: dict[int, float] = {}
         self.stats = {"prefills": 0, "decode_steps": 0, "tokens": 0}
-        # host-clock seconds, each ending in a device sync (the sampled
-        # token reaches the host): prefill per request id, and each decode
-        # step with its block-table lookup
+        # the engine.prefill and engine.decode spans' seconds, each ending
+        # in a device sync (the sampled token reaches the host): prefill
+        # per request id, and each decode step with its block-table lookup
         self.prefill_s: dict[int, float] = {}
         self.decode_s: list[float] = []
 
@@ -107,34 +125,42 @@ class ServingEngine:
         self._next_rid += 1
         self._requests[rid] = Request(rid, np.asarray(prompt, np.int32),
                                       max_new_tokens=max_new_tokens)
+        self._submit_t[rid] = _now()
         return rid
 
     # ------------------------------------------------------------ prefill
     @torch.inference_mode()
     def _prefill_one(self, r: Request, slot: int):
-        t0 = _now()
+        ring = self._spans
         S = len(r.prompt)
-        toks = np.pad(r.prompt, (0, -S % self.page_size))
-        n_blocks = len(toks) // self.page_size
-        pages = [self.kv.allocate(r.rid, b) for b in range(n_blocks)]
-        logits, cache = self.model.prefill(
-            torch.from_numpy(toks[None]).to(self.device), self.page_size,
-            S - 1)
-        idx = torch.tensor(pages, device=self.device)
-        for name, pools in self.pools.items():
-            for kind, pool in pools.items():
-                new = cache.layers[name][kind]
-                if kind in tf.KV_LEAVES:   # -> the allocated page slots
-                    pool[:, idx] = new[:, :n_blocks].to(pool.dtype)
-                else:                      # mamba state -> the slot row
-                    pool[:, slot] = new[:, 0].to(pool.dtype)
-        r.seq_len = S
-        r.slot = slot
-        self._slots[slot] = r.rid
-        r.out_tokens.append(int(torch.argmax(logits[0])))
-        self.stats["prefills"] += 1
-        self.stats["tokens"] += 1
-        self.prefill_s[r.rid] = _now() - t0
+        with timed_span(ring, "engine.prefill", rid=r.rid, tokens=S) as sp:
+            toks = np.pad(r.prompt, (0, -S % self.page_size))
+            n_blocks = len(toks) // self.page_size
+            pages = [self.kv.allocate(r.rid, b) for b in range(n_blocks)]
+            with span(ring, "model.prefill"):
+                logits, cache = self.model.prefill(
+                    torch.from_numpy(toks[None]).to(self.device),
+                    self.page_size, S - 1)
+            with span(ring, "engine.kv_write"):
+                idx = torch.tensor(pages, device=self.device)
+                for name, pools in self.pools.items():
+                    for kind, pool in pools.items():
+                        new = cache.layers[name][kind]
+                        if kind in tf.KV_LEAVES:  # -> the allocated pages
+                            pool[:, idx] = new[:, :n_blocks].to(pool.dtype)
+                        else:                     # mamba state -> slot row
+                            pool[:, slot] = new[:, 0].to(pool.dtype)
+            r.seq_len = S
+            r.slot = slot
+            self._slots[slot] = r.rid
+            with span(ring, "engine.sync"):
+                r.out_tokens.append(int(torch.argmax(logits[0])))
+            self.stats["prefills"] += 1
+            self.stats["tokens"] += 1
+        self.prefill_s[r.rid] = sp.t1 - sp.t0
+        submit_t = self._submit_t.pop(r.rid)
+        if ring is not None:
+            ring.add("request.queue", submit_t, sp.t0, rid=r.rid)
 
     # ------------------------------------------------------------- decode
     def _active(self) -> list[Request]:
@@ -146,55 +172,63 @@ class ServingEngine:
         act = self._active()
         if not act:
             return
-        t0 = _now()
+        ring = self._spans
         B, pps = self.batch_size, self.pps
-        for r in act:   # page for the next token (host-side Honeycomb PUT)
-            blk = r.seq_len // self.page_size
-            if self.kv.table.get(page_key(r.rid, blk)) is None:
-                self.kv.allocate(r.rid, blk)
-        # block tables, lengths and tokens in ONE host array, so one copy
-        # takes them to the device
-        host = np.zeros(B * pps + 2 * B, np.int32)
-        bt = host[:B * pps].reshape(B, pps)
-        lens, toks = host[B * pps:B * pps + B], host[B * pps + B:]
-        rows = self.kv.lookup_block_tables([r.rid for r in act], pps)
-        for i, r in enumerate(act):
-            bt[r.slot] = rows[i]
-            lens[r.slot] = r.seq_len
-            toks[r.slot] = r.out_tokens[-1]
-        if bt.min() < 0 or bt.max() >= self.kv.n_pages:
-            raise RuntimeError(f"block table names a page outside "
-                               f"[0, {self.kv.n_pages})")
-        dev = torch.from_numpy(host).to(self.device, copy=True)
-        cache = tf.DecodeCache(layers=self.pools,
-                               block_tables=dev[:B * pps].view(B, pps),
-                               seq_lens=dev[B * pps:B * pps + B])
-        logits, _ = self.model.decode_step(
-            cache, dev[B * pps + B:].view(B, 1), self.page_size)
-        out = torch.argmax(logits, dim=-1).cpu().numpy()
-        for r in act:
-            r.seq_len += 1
-            r.out_tokens.append(int(out[r.slot]))
-            self.stats["tokens"] += 1
-            if len(r.out_tokens) >= r.max_new_tokens \
-                    or r.seq_len >= self.max_seq - 1:
-                r.done = True
-                self._slots[r.slot] = None
-                self.kv.free_seq(r.rid, -(-(r.seq_len + 1)
-                                          // self.page_size))
-        self.stats["decode_steps"] += 1
-        self.decode_s.append(_now() - t0)
+        with timed_span(ring, "engine.decode", rows=len(act),
+                        positions=sum(r.seq_len + 1 for r in act)) as sp:
+            # a page for the next token (host-side Honeycomb GET and PUT)
+            self.kv.reserve([(r.rid, r.seq_len // self.page_size)
+                             for r in act])
+            # block tables, lengths and tokens in ONE host array, so one
+            # copy takes them to the device
+            host = np.zeros(B * pps + 2 * B, np.int32)
+            bt = host[:B * pps].reshape(B, pps)
+            lens, toks = host[B * pps:B * pps + B], host[B * pps + B:]
+            rows = self.kv.lookup_block_tables([r.rid for r in act], pps)
+            for i, r in enumerate(act):
+                bt[r.slot] = rows[i]
+                lens[r.slot] = r.seq_len
+                toks[r.slot] = r.out_tokens[-1]
+            if bt.min() < 0 or bt.max() >= self.kv.n_pages:
+                raise RuntimeError(f"block table names a page outside "
+                                   f"[0, {self.kv.n_pages})")
+            with span(ring, "engine.h2d"):
+                dev = torch.from_numpy(host).to(self.device, copy=True)
+            with span(ring, "model.decode"):
+                cache = tf.DecodeCache(
+                    layers=self.pools, block_tables=dev[:B * pps].view(B, pps),
+                    seq_lens=dev[B * pps:B * pps + B])
+                logits, _ = self.model.decode_step(
+                    cache, dev[B * pps + B:].view(B, 1), self.page_size)
+            with span(ring, "engine.sync"):
+                out = torch.argmax(logits, dim=-1).cpu().numpy()
+            for r in act:
+                r.seq_len += 1
+                r.out_tokens.append(int(out[r.slot]))
+                self.stats["tokens"] += 1
+                if len(r.out_tokens) >= r.max_new_tokens \
+                        or r.seq_len >= self.max_seq - 1:
+                    r.done = True
+                    self._slots[r.slot] = None
+                    self.kv.free_seq(r.rid, -(-(r.seq_len + 1)
+                                              // self.page_size))
+            self.stats["decode_steps"] += 1
+        self.decode_s.append(sp.t1 - sp.t0)
 
     # ----------------------------------------------------------------- run
     def step(self):
         """One scheduler tick: admit into free slots, then decode."""
-        waiting = [r for r in self._requests.values()
-                   if r.slot < 0 and not r.done]
-        for r in waiting:
-            if None not in self._slots:
-                break
-            self._prefill_one(r, self._slots.index(None))
-        self._decode_batch()
+        with span(self._spans, "engine.step"):
+            with span(self._spans, "engine.admit") as sp:
+                waiting = [r for r in self._requests.values()
+                           if r.slot < 0 and not r.done]
+                free = [i for i, rid in enumerate(self._slots)
+                        if rid is None]
+                admitted = list(zip(waiting, free))
+                sp.tag(waiting=len(waiting), admitted=len(admitted))
+            for r, slot in admitted:
+                self._prefill_one(r, slot)
+            self._decode_batch()
 
     def run_until_done(self, max_ticks: int = 1000):
         for _ in range(max_ticks):

@@ -14,12 +14,22 @@ Keys: 16-byte big-endian (seq_id u64, block_idx u64) for pages;
       (hash u64, length u64) for prefixes.  Values: 4-byte page ids.
 Both stores keep their snapshots on ``device`` (``"cuda"`` unless the
 caller passes ``"cpu"``).
+
+Given a span ring (``spans``, core/telemetry.py), the page table's calls
+record spans: ``page_table.put`` (a page allocated), ``page_table.reserve``
+(a decode step's page check, a host GET a row), ``page_table.lookup``
+(the block-table GET) with its children ``page_table.export`` (the
+``on_read`` delta sync) and ``page_table.get`` (the GET batch and its
+result copies), and ``page_table.free``.  Each carries its host PUTs,
+GETs and DELETEs in ``tags``; the table's own ``stats``, ``sync_stats``
+and ``pipeline_stats`` keep the totals.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..core import HoneycombConfig, HoneycombStore
+from ..core.telemetry import SpanRing, span
 
 
 def page_key(seq_id: int, block: int) -> bytes:
@@ -54,40 +64,72 @@ class PagedKVCache:
     """Physical page pool + Honeycomb page table."""
 
     def __init__(self, n_pages: int, page_size: int,
-                 cfg: HoneycombConfig | None = None, device="cuda"):
+                 cfg: HoneycombConfig | None = None, device="cuda",
+                 spans: SpanRing | None = None):
         self.n_pages = n_pages
         self.page_size = page_size
         self.free_pages = list(range(n_pages - 1, -1, -1))
         self.table = HoneycombStore(cfg or _store_config(), device=device)
         self.prefix = HoneycombStore(_store_config(), device=device)
+        self.spans = spans
 
     # ------------------------------------------------------- allocation
     def allocate(self, seq_id: int, block: int) -> int:
         """Host-side write (the paper's CPU PUT)."""
-        if not self.free_pages:
-            raise RuntimeError("KV pool exhausted")
-        page = self.free_pages.pop()
-        self.table.put(page_key(seq_id, block),
-                       int(page).to_bytes(4, "big"))
+        with span(self.spans, "page_table.put", rid=seq_id, puts=1):
+            if not self.free_pages:
+                raise RuntimeError("KV pool exhausted")
+            page = self.free_pages.pop()
+            self.table.put(page_key(seq_id, block),
+                           int(page).to_bytes(4, "big"))
         return page
 
+    def reserve(self, blocks: list[tuple[int, int]]):
+        """A page for each (seq_id, block): a host GET each, and a PUT
+        where the block has none yet."""
+        with span(self.spans, "page_table.reserve", gets=len(blocks)) as sp:
+            puts = 0
+            for seq_id, block in blocks:
+                if self.table.get(page_key(seq_id, block)) is None:
+                    self.allocate(seq_id, block)
+                    puts += 1
+            sp.tag(puts=puts)
+
     def free_seq(self, seq_id: int, n_blocks: int):
-        for b in range(n_blocks):
-            k = page_key(seq_id, b)
-            v = self.table.get(k)
-            if v is not None:
-                self.table.delete(k)
-                self.free_pages.append(int.from_bytes(v, "big"))
+        with span(self.spans, "page_table.free", rid=seq_id,
+                  gets=n_blocks) as sp:
+            freed = 0
+            for b in range(n_blocks):
+                k = page_key(seq_id, b)
+                v = self.table.get(k)
+                if v is not None:
+                    self.table.delete(k)
+                    self.free_pages.append(int.from_bytes(v, "big"))
+                    freed += 1
+            sp.tag(deletes=freed)
 
     # ----------------------------------------------------- batched reads
     def lookup_block_tables(self, seq_ids: list[int], n_blocks: int
                             ) -> np.ndarray:
         """Device-path batched GET: [len(seq_ids), n_blocks] int32.
-        Missing blocks map to page 0 (masked off by seq_lens downstream)."""
+        Missing blocks map to page 0 (masked off by seq_lens downstream).
+        The table's ``get_batch`` in its two halves, each its own span:
+        the sync its policy runs before a read, then the GET batch."""
         keys = [page_key(s, b) for s in seq_ids for b in range(n_blocks)]
-        vals = self.table.get_batch(keys)
-        out = np.array([int.from_bytes(v, "big") if v is not None else 0
-                        for v in vals], np.int32)
+        table, sync = self.table, self.table.sync_stats
+        with span(self.spans, "page_table.lookup", keys=len(keys)) as sp:
+            rows, nbytes = sync.delta_rows, sync.bytes_synced
+            with span(self.spans, "page_table.export") as ex:
+                snap = table.snapshot_for_read()
+                ex.tag(rows=sync.delta_rows - rows,
+                       bytes=sync.bytes_synced - nbytes)
+            lanes = table.pipeline_stats.padded_lanes
+            with span(self.spans, "page_table.get"):
+                vals = table.get_batch(keys, snap)
+            sp.tag(padded=table.pipeline_stats.padded_lanes - lanes
+                   - len(keys))
+            out = np.array([int.from_bytes(v, "big") if v is not None
+                            else 0 for v in vals], np.int32)
         return out.reshape(len(seq_ids), n_blocks)
 
     # ------------------------------------------------------ prefix cache

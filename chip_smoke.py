@@ -91,6 +91,12 @@ after:
    table a dict model, every served token's logit lie within its
    engine's ``MOE_SSM_TOL`` of its row's maximum in a full forward, and
    a share of them at least that entry's floor be the forward's argmax;
+   a request whose tokens lie further passes only where a MoE route
+   flipped: its served tokens teacher-forced through the engine's prefill
+   (the grouped MoE) and decode must flip a route against the full
+   forward, its gap stay within ``MOE_OWN_ROUTES_TOL``, and the
+   teacher-forced tokens with every route forced to the forward's lie
+   within ``MOE_SSM_TOL``;
    for the mamba models prefill of all but 8 prompt tokens and 8
    teacher-forced decode steps must give the full forward's logits (the
    chunked scan against the recurrence), in bf16 within that entry's
@@ -349,7 +355,11 @@ MOE_SSM_TOL = {
                        "handoff": 0.3125}}
 # the handoff with its own MoE routes, where a flipped route moves a token
 # by an expert's share: the first rehearsal's bound (its largest figure,
-# 1.5469, times 1.5, rounded up), held beside the forced one
+# 1.5469, times 1.5, rounded up), held beside the forced one; also the
+# bound of a served token past MOE_SSM_TOL where a route flipped (on an
+# H100, jamba at seed 0: 1.0 with the grouped prefill, 67 prefill routes
+# flipped, 0.0312 once forced; a dense prefill's handoff of the same
+# request reads the same 1.0)
 MOE_OWN_ROUTES_TOL = 2.5
 # the handoff again with f32 weights, where the chunked scan and the
 # recurrence differ in summation order only (the rehearsal's largest f32
@@ -357,6 +367,13 @@ MOE_OWN_ROUTES_TOL = 2.5
 # through an f32 engine, which has no KV pool to round to bf16 and no
 # route to flip (the rehearsal's f32 gaps: 0.0 at every seed)
 F32_TOL = 0.01
+# the grouped MoE of prefill (kernels/moe_grouped.py) at the docqa cells'
+# widths and prompt lengths: (arch, prompt tokens)
+GROUPED_SHAPES = (("olmoe-1b-7b", 512), ("olmoe-1b-7b", 1536),
+                  ("jamba-v0.1-52b", 2048))
+# the kernel against its plain version in bf16: a few ulps of h and y,
+# outputs of magnitude ~1 (tests/test_torch_cuda.py: GROUPED_BF16_TOL)
+GROUPED_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 # moe_dense against moe_ragged on one olmoe layer in f32: the same routes,
 # sums of 2,048 (d) and 1,024 (f) products in other orders
 MOE_IMPL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -674,6 +691,11 @@ def run_paths(args) -> int:
                                + [x["max_abs_err"] for x in moe_ssm_shapes])
     print(f"MoE/SSM serving path with its checks and timings: "
           f"{time.perf_counter() - t0:.3f} s")
+    print("== the grouped MoE of prefill at the docqa cells' shapes ==")
+    t0 = time.perf_counter()
+    kernels.append(moe_grouped_path(args, dev, flush))
+    print(f"grouped MoE with its checks and timings: "
+          f"{time.perf_counter() - t0:.3f} s")
     print("== encoder-decoder and embedding inputs through launch/steps.py: "
           "pixtral-12b, seamless-m4t-medium ==")
     t0 = time.perf_counter()
@@ -765,12 +787,19 @@ def smoke_smem_bytes() -> dict:
     }
 
 
+# launches of its own kernel a kernel-check dispatch, where not 1: the
+# grouped MoE's dispatch, gather, gate/up, down and combine
+KERNEL_CHECK_LAUNCHES = {"ops.moe_grouped": 5}
+
+
 def kernel_check_phase(dev) -> None:
     """``python -m repro_torch.analysis``'s kernel check on the card: each
     entry point of ``kernels/ops.py`` once on small seeded inputs (these
-    launches are no path's).  Each entry also gets its shared memory at
-    this script's shapes (``smoke_smem_bytes``).  Prints one
-    ``{"kernel_check": [...]}`` line; any finding fails the run."""
+    launches are no path's), each launching its own kernel once
+    (``KERNEL_CHECK_LAUNCHES`` where a dispatch takes several).  Each entry
+    also gets its shared memory at this script's shapes
+    (``smoke_smem_bytes``).  Prints one ``{"kernel_check": [...]}`` line;
+    any finding fails the run."""
     from repro_torch.analysis import kernel_check
     findings, runs = kernel_check.run_kernel_checks(dev)
     for f in findings:
@@ -781,8 +810,9 @@ def kernel_check_phase(dev) -> None:
         e["smoke_smem_bytes"] = smoke.get(e["name"], e["smem_bytes"])
     print(json.dumps({"kernel_check": entries}))
     check(not findings, f"the kernel check found {len(findings)} fault(s)")
-    check(len(entries) == 10 and all(
-        e["launches"] == 1 and e["other_launches"] == 0
+    check(len(entries) == 11 and all(
+        e["launches"] == KERNEL_CHECK_LAUNCHES.get(e["name"], 1)
+        and e["other_launches"] == 0
         and e["readbacks"] <= e["readbacks_pinned"]
         and max(e["smem_bytes"], e["smoke_smem_bytes"]) <= e["smem_limit"]
         for e in entries), f"kernel check entries {entries}")
@@ -3066,18 +3096,19 @@ def served_gap(model, prompts: dict, outs: dict, dev) -> tuple:
     """Every served token against a plain full forward over its prompt and
     the tokens served before it: (largest gap between a served token's
     logit and its row's maximum, served tokens that are the forward's
-    argmax, served tokens)."""
-    gap, agree, n = 0.0, 0, 0
+    argmax, served tokens, each request's largest gap by id)."""
+    gap, agree, n, per = 0.0, 0, 0, {}
     for rid, prompt in prompts.items():
         out = torch.tensor(outs[rid])
         seq = np.concatenate([prompt, out[:-1].numpy().astype(np.int32)])
         logits = full_logits(model, seq, dev)[len(prompt) - 1:]
         chosen = logits[torch.arange(len(out), device=dev), out.to(dev)]
-        gap = max(gap, float((logits.max(dim=-1).values - chosen).max()))
+        per[rid] = float((logits.max(dim=-1).values - chosen).max())
+        gap = max(gap, per[rid])
         agree += int((logits.argmax(dim=-1).cpu() == out).sum())
         n += len(out)
         del logits
-    return gap, agree, n
+    return gap, agree, n, per
 
 
 @contextlib.contextmanager
@@ -3110,16 +3141,17 @@ def moe_routes(forced=None):
         moe.router_probs = plain
 
 
-def teacher_forced(model, prompt: np.ndarray, S: int, P: int,
-                   dev) -> torch.Tensor:
+def teacher_forced(model, prompt: np.ndarray, S: int, P: int, dev,
+                   moe_impl: str = "dense") -> torch.Tensor:
     """Logits [k + 1, V] of prefill of ``prompt[:S]`` (padded to pages,
-    its state taken at the last real token) and of k teacher-forced
-    decode steps on ``prompt[S:]``, k = len(prompt) - S."""
+    its state taken at the last real token, its MoE through ``moe_impl``)
+    and of k teacher-forced decode steps on ``prompt[S:]``, k =
+    len(prompt) - S."""
     from repro_torch.models import transformer as tf
     padded = np.pad(prompt[:S], (0, -S % P))
     with torch.inference_mode():
         first, cache = model.prefill(torch.from_numpy(padded[None]).to(dev),
-                                     P, S - 1)
+                                     P, S - 1, moe_impl=moe_impl)
         layers = {n: {k: torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
                       if k in tf.KV_LEAVES else t for k, t in c.items()}
                   for n, c in cache.layers.items()}
@@ -3135,27 +3167,35 @@ def teacher_forced(model, prompt: np.ndarray, S: int, P: int,
     return torch.stack(rows)
 
 
-def handoff_drift(model, prompt: np.ndarray, P: int, dev) -> dict:
-    """Prefill of ``prompt[:-k]`` and k teacher-forced decode steps
-    (``teacher_forced``) against a full forward's logits at those k + 1
-    positions, k = TEACHER_STEPS.  A model with MoE layers runs the
-    handoff twice: with its own routes, and with every route forced to the
-    full forward's, so that only rounding separates the two.  Returns
-    {"drift": max abs difference, "forced": the same with the routes
-    forced (None without MoE), "flips": (MoE layer, position) pairs whose
-    own experts differ from the full forward's, "routes": the pairs
-    compared, "top": max |logit|}."""
-    S = len(prompt) - TEACHER_STEPS
+def handoff_drift(model, prompt: np.ndarray, P: int, dev,
+                  steps: int = TEACHER_STEPS, moe_impl: str = "dense") -> dict:
+    """Prefill of ``prompt[:-k]`` (its MoE through ``moe_impl``) and k
+    teacher-forced decode steps (``teacher_forced``) against a full
+    forward's logits at those k + 1 positions, k = ``steps``.  A model
+    with MoE layers runs the handoff twice: with its own routes, and with
+    every route forced to the full forward's, so that only rounding
+    separates the two.  Returns {"drift": max abs difference, "forced":
+    the same with the routes forced (None without MoE), "gap", "gap_forced":
+    the largest gap between the full forward's logit of the handoff's
+    argmax token and its row's maximum, with its own and the forced routes,
+    "flips": (MoE layer, position) pairs whose own experts differ from the
+    full forward's, "routes": the pairs compared, "top": max |logit|}."""
+    S = len(prompt) - steps
     with moe_routes() as full_routes:
         full = full_logits(model, prompt, dev)[S - 1:]
+    rows = torch.arange(full.shape[0], device=dev)
+    top = full.max(dim=-1).values
+
+    def gap(logits):
+        return float((top - full[rows, logits.argmax(dim=-1)]).max())
     with moe_routes() as own:
-        drift = float((teacher_forced(model, prompt, S, P, dev) - full)
-                      .abs().max())
-    out = {"drift": drift, "forced": None, "flips": 0, "routes": 0,
+        lg = teacher_forced(model, prompt, S, P, dev, moe_impl)
+    out = {"drift": float((lg - full).abs().max()), "forced": None,
+           "gap": gap(lg), "gap_forced": None, "flips": 0, "routes": 0,
            "top": float(full.abs().max())}
     if full_routes:
         want = [r[:, :S] for r in full_routes] + [
-            r[:, S + i:S + i + 1] for i in range(TEACHER_STEPS)
+            r[:, S + i:S + i + 1] for i in range(steps)
             for r in full_routes]
         for got, w in zip(own, want):
             same = (got[:, :w.shape[1]].sort(dim=-1).values
@@ -3163,8 +3203,9 @@ def handoff_drift(model, prompt: np.ndarray, P: int, dev) -> dict:
             out["flips"] += int((~same).sum())
             out["routes"] += same.numel()
         with moe_routes(want):
-            out["forced"] = float((teacher_forced(model, prompt, S, P, dev)
-                                   - full).abs().max())
+            lg = teacher_forced(model, prompt, S, P, dev, moe_impl)
+        out["forced"] = float((lg - full).abs().max())
+        out["gap_forced"] = gap(lg)
     return out
 
 
@@ -3249,6 +3290,7 @@ def serve_moe_ssm(args, dev, flush, arch, layers, want_params, want_active):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    prefills = eng.stats["prefills"]
     outs = eng.run_until_done()
 
     check(all(len(outs[r]) == new for r in rids),
@@ -3266,8 +3308,13 @@ def serve_moe_ssm(args, dev, flush, arch, layers, want_params, want_active):
     check(launches["paged_attention"] == attn_layers * steps,
           f"{arch}: {launches['paged_attention']} paged_attention launches "
           f"for {steps} decode steps of {attn_layers} attention layers")
+    moe_layers = cfg.n_superblocks * sum(f == "moe" for _, f in kinds)
+    check(launches["moe_grouped"] == 5 * moe_layers * prefills,
+          f"{arch}: {launches['moe_grouped']} grouped MoE launches for "
+          f"{prefills} prefills of {moe_layers} MoE layers (5 a layer)")
     check(all(v == 0 for k, v in launches.items() if k not in
-              ("paged_attention", "fused_get", "row_scatter")),
+              ("paged_attention", "fused_get", "row_scatter",
+               "moe_grouped")),
           f"{arch}: the serving path launched another kernel: {launches}")
     prefill_ms = [eng.prefill_s[r] * 1e3 for r in rids]
     decode_ms = [t * 1e3 for i, t in enumerate(eng.decode_s)
@@ -3293,14 +3340,39 @@ def serve_moe_ssm(args, dev, flush, arch, layers, want_params, want_active):
 
     # ---- every served token against a plain full forward -----------------
     tol = MOE_SSM_TOL[arch]
-    gap, agree, n = served_gap(eng.model, dict(zip(rids, prompts)), outs,
-                               dev)
+    by_rid = dict(zip(rids, prompts))
+    gap, agree, n, per = served_gap(eng.model, by_rid, outs, dev)
     print(f"  served tokens: the full forward's argmax equals {agree} of "
           f"{n} (floor {tol['agree']:.4f} of them); largest gap between a "
           f"served token's logit and its row's max {gap:.4f} (tolerance "
-          f"{tol['gap']})")
-    check(gap <= tol["gap"], f"{arch}: a served token's logit lies "
-          f"{gap:.4f} below its row's max in the full forward")
+          f"{tol['gap']}), by request "
+          + ", ".join(f"{g:.4f}" for g in per.values()))
+    for rid, g in per.items():
+        if g <= tol["gap"]:
+            continue
+        # past the tolerance: admitted only where a MoE route flipped, as
+        # the handoff's own routes are (MOE_OWN_ROUTES_TOL), and where the
+        # request's served tokens, teacher-forced through the engine's
+        # prefill (its grouped MoE) and decode with every route forced to
+        # the full forward's, lie within the tolerance
+        seq = np.concatenate([by_rid[rid],
+                              np.asarray(outs[rid][:-1], np.int32)])
+        h = handoff_drift(eng.model, seq, P, dev, steps=len(outs[rid]) - 1,
+                          moe_impl="grouped")
+        forced = "no MoE" if h["gap_forced"] is None else \
+            f"{h['gap_forced']:.4f}"
+        print(f"  request {rid}: served tokens {g:.4f} below the forward's "
+              f"max (own-route tolerance {MOE_OWN_ROUTES_TOL}); teacher-"
+              f"forced through prefill and decode: {h['flips']} of "
+              f"{h['routes']} (MoE layer, position) routes flipped against "
+              f"the full forward's, the argmax tokens' gap {h['gap']:.4f} "
+              f"with its own routes, {forced} with every route forced "
+              f"(tolerance {tol['gap']}; logits {h['drift']:.4f} and "
+              f"{h['forced'] or 0:.4f} from the forward's)")
+        check(h["flips"] > 0 and g <= MOE_OWN_ROUTES_TOL
+              and h["gap_forced"] <= tol["gap"], f"{arch}: request {rid}'s "
+              f"served token lies {g:.4f} below its row's max in the full "
+              f"forward, not explained by a flipped route")
     check(agree >= tol["agree"] * n, f"{arch}: {agree} of {n} served "
           f"tokens are the full forward's argmax")
 
@@ -3352,8 +3424,9 @@ def serve_moe_ssm(args, dev, flush, arch, layers, want_params, want_active):
                                 device=dev)
             rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
             outs = eng.run_until_done()
-            gap, agree, n = served_gap(eng.model, dict(zip(rids, prompts)),
-                                       outs, dev)
+            gap, agree, n, _ = served_gap(eng.model,
+                                          dict(zip(rids, prompts)), outs,
+                                          dev)
             print(f"  served tokens of the same prompts through an engine "
                   f"with these f32 weights: the full forward's argmax "
                   f"equals {agree} of {n}; largest gap between a served "
@@ -3415,6 +3488,131 @@ def moe_impl_check(eng, cfg, args, dev) -> None:
               f"events, back to back; the ragged one reads its group "
               f"sizes back)")
         del x, dense, ragged
+
+
+def moe_grouped_path(args, dev, flush) -> dict:
+    """The grouped MoE of prefill at ``GROUPED_SHAPES``: one MoE layer of
+    each configuration at full width, random bf16 weights (N(0, 1 / K))
+    and normal inputs from ``--seed``, routed by its own router.  The five
+    launches against the plain version (``GROUPED_BF16_TOL``); their
+    device time (profiler, L2 flushed) by kernel, beside the bound (the
+    products at 989 TFLOP/s or the touched experts' weights, x, h and y at
+    3.35 TB/s, whichever is longer), the whole layer with its router, the
+    plain version's device time, the dense layer's (``moe_dense``, today's
+    cost) and, where torch has it, ``torch._grouped_mm``'s three products
+    and the SiLU between them as the library yardstick (timed only).
+    Returns the ``kernels`` entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import moe_grouped as mg
+    from repro_torch.models import moe as me
+    shapes = []
+    for arch, T in GROUPED_SHAPES:
+        cfg = get_config(arch)
+        E, k, d, f = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        p = {name: (torch.randn(spec.shape, generator=gen, device=dev)
+                    / spec.shape[-2] ** 0.5).to(spec.dtype)
+             for name, spec in me.moe_schema(cfg).items()}
+        x3 = torch.randn(1, T, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        gates, ids = me.router_probs(p, x3, cfg)
+        x, gates, ids = x3[0], gates[0].contiguous(), ids[0].contiguous()
+        w = (p["w_gate"], p["w_up"], p["w_down"])
+        build.reset_launches()
+        got = ops.moe_grouped(x, gates, ids, *w)
+        torch.cuda.synchronize()
+        check(build.LAUNCHES["moe_grouped"] == 5, f"{arch}: "
+              f"{build.LAUNCHES['moe_grouped']} grouped launches, not 5")
+        want = mg.moe_grouped_plain(x, gates, ids, *w)
+        err = float((got.float() - want.float()).abs().max())
+        mean_err = float((got.float() - want.float()).abs().mean())
+        try:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **GROUPED_BF16_TOL)
+        except AssertionError as exc:
+            raise SmokeFailure(f"moe_grouped vs plain at {arch}, T = {T}: "
+                               f"{exc}")
+        used = int((torch.bincount(ids.reshape(-1), minlength=E) > 0).sum())
+        flops = 6 * T * k * d * f
+        io = used * 3 * d * f * 2 + (T * d + T * k * (f + d)) * 2
+        bound_ms = max(flops / BF16_FLOPS, io / HBM_BYTES_PER_S) * 1e3
+        # device_all_ms wants 90% of a trace's calls, and late in a smoke
+        # run the profiler has dropped a trace's first ~16 device
+        # activities (2.5-3 calls of 20 at every shape): 40 calls a trace
+        reps = 40
+        ms, parts = device_all_ms(
+            [lambda: ops.moe_grouped(x, gates, ids, *w)], reps, flush)
+        layer_ms = device_all_ms([lambda: me.moe_grouped(p, x3, cfg)],
+                                 reps, flush)[0]
+        dense_ms = device_all_ms([lambda: me.moe_dense(p, x3, cfg)], reps,
+                                 flush)[0]
+        plain_ms = device_all_ms(
+            [lambda: mg.moe_grouped_plain(x, gates, ids, *w)], reps,
+            flush)[0]
+        library_ms, library_err = grouped_mm_yardstick(
+            x, ids, w, got, E, k, reps, flush)
+        kernel_ms = {name[:60]: round(t / reps / 1e3, 6)
+                     for name, (n, t) in parts.items()}
+        shape = {"arch": arch, "T": T, "E": E, "k": k, "d": d, "f": f,
+                 "experts_used": used, "ms": ms, "bound_ms": bound_ms,
+                 "bound_by": "bytes" if io / HBM_BYTES_PER_S
+                 >= flops / BF16_FLOPS else "operations",
+                 "layer_ms": layer_ms, "dense_layer_ms": dense_ms,
+                 "plain_ms": plain_ms, "library_ms": library_ms,
+                 "library_max_abs_err": library_err, "max_abs_err": err,
+                 "mean_abs_err": mean_err, "by_kernel_ms": kernel_ms}
+        print(f"  moe_grouped {arch} T = {T} ({used} of {E} experts used): "
+              f"{ms:.4f} ms device time for the five launches, bound "
+              f"{bound_ms:.4f} ms ({shape['bound_by']}; {flops} flops, "
+              f"{io} B), {ms / bound_ms:.2f}x; the layer with its router "
+              f"{layer_ms:.4f} ms; dense layer {dense_ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; torch._grouped_mm yardstick "
+              f"{library_ms} ms; max abs err vs plain {err:.4g} (mean "
+              f"{mean_err:.3g}); by kernel {kernel_ms}")
+        shapes.append(shape)
+        del p, x3, x, gates, ids, w, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"name": "moe_grouped", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_grouped.cu",
+            "replaces": "none: the reference's ragged MoE is "
+                        "jax.lax.ragged_dot, no Pallas kernel",
+            "max_abs_err": max(x["max_abs_err"] for x in shapes),
+            "shapes": shapes}
+
+
+def grouped_mm_yardstick(x, ids, w, got, E, k, reps, flush):
+    """Device ms of ``torch._grouped_mm``'s gate, up and down products
+    over the kernel's own sorted rows, with the SiLU between them (the
+    library yardstick; the port never calls it), and its result's max
+    abs difference to the kernel's rows y.  (None, reason) where torch
+    lacks it or refuses the layout."""
+    from repro_torch.kernels import moe_grouped as mg
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch has no _grouped_mm"
+    pos, meta = mg.dispatch_plain(ids, E, mg.WGMMA_ROWS)
+    xs = mg.gather_plain(x, pos, k)
+    offs = meta[1:E + 1].contiguous()
+    _, y = mg.ffn_plain(xs, meta, *w)
+
+    def run(wg, wu, wd):
+        g = torch._grouped_mm(xs, wg, offs=offs)
+        u = torch._grouped_mm(xs, wu, offs=offs)
+        return torch._grouped_mm(torch.nn.functional.silu(g) * u, wd,
+                                 offs=offs)
+    for layout in ("as stored", "column-major"):
+        ws = w if layout == "as stored" else tuple(
+            t.transpose(1, 2).contiguous().transpose(1, 2) for t in w)
+        try:
+            lib = run(*ws)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            last = f"{layout}: {str(exc).splitlines()[0][:120]}"
+            continue
+        err = float((lib.float() - y.float()).abs().max())
+        return device_all_ms([lambda: run(*ws)], reps, flush)[0], err
+    return None, last
 
 
 def paged_engine_check(arch, eng, cfg, live, args, dev, flush) -> dict:

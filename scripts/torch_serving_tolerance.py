@@ -72,8 +72,8 @@ def rehearse(cfg, params, seed: int) -> dict:
                for n in rng.integers(64, 257, REQUESTS)]
     rids = [eng.submit(p, max_new_tokens=NEW) for p in prompts]
     outs = eng.run_until_done()
-    gap, agree, n = served_gap(eng.model, dict(zip(rids, prompts)), outs,
-                               "cpu")
+    gap, agree, n, _ = served_gap(eng.model, dict(zip(rids, prompts)),
+                                  outs, "cpu")
     out = {"gap": gap, "agree": agree / n, "drift": 0.0, "forced": None,
            "flips": 0, "routes": 0}
     for p in prompts:

@@ -296,7 +296,7 @@ def kernel_entries() -> list[KernelEntry]:
     from ..core import HoneycombConfig, NodeImageLayout, StoreShard
     from ..core.keys import pack_keys
     from ..kernels import (delta_scatter, fused_read, key_search,
-                           leaf_merge, ops, paged_attention)
+                           leaf_merge, moe_grouped, ops, paged_attention)
 
     cfg = HoneycombConfig()
     layout = NodeImageLayout.for_config(cfg)
@@ -413,6 +413,20 @@ def kernel_entries() -> list[KernelEntry]:
         return (ops.paged_attention,
                 tuple(t.to(device) for t in (q, k, v, bt, sl)), {}, None)
 
+    # bf16 at whole tiles, so the card takes the wgmma products
+    ME, MK, MT, Md, Mf = 4, 2, 6, 256, 128
+
+    def grouped(device):
+        g = torch.Generator().manual_seed(9)
+        x = torch.randn(MT, Md, generator=g).to(torch.bfloat16)
+        ids = torch.stack([torch.randperm(ME, generator=g)[:MK]
+                           for _ in range(MT)])
+        gates = torch.rand(MT, MK, generator=g)
+        w = [(torch.randn(ME, a, b, generator=g) * 0.05).to(torch.bfloat16)
+             for a, b in ((Md, Mf), (Md, Mf), (Mf, Md))]
+        return (ops.moe_grouped, tuple(t.to(device) for t in (
+            x, gates / gates.sum(-1, keepdim=True), ids, *w)), {}, None)
+
     # ---- shared-memory figures (bytes of dynamic shared memory a block)
     def no_smem():
         # the row copy asks for none: its field table is static
@@ -473,6 +487,15 @@ def kernel_entries() -> list[KernelEntry]:
                         f"{elem(dt) * 8}-bit pools", smem))
         return out
 
+    def grouped_smem():
+        # the products' ring of stages; the dispatch's ids, one byte a
+        # pair, beside its static per-warp counts
+        return [("products, any shape", moe_grouped.WGMMA_SMEM),
+                (f"dispatch, {MT * MK} pairs",
+                 moe_grouped.dispatch_smem_bytes(MT * MK)),
+                (f"largest admitted dispatch, {moe_grouped.MAX_PAIRS} pairs",
+                 moe_grouped.dispatch_smem_bytes(moe_grouped.MAX_PAIRS))]
+
     k = "src/repro_torch/kernels"
     check_rows = ("kernels/ref.py:check_rows reads the rows' minimum and "
                   "maximum back before the scatter writes (raise before "
@@ -505,6 +528,8 @@ def kernel_entries() -> list[KernelEntry]:
                     merge, merge_smem),
         KernelEntry("ops.paged_attention", f"{k}/paged_attention.py",
                     "paged_attention", paged, paged_smem),
+        KernelEntry("ops.moe_grouped", f"{k}/moe_grouped.py",
+                    "moe_grouped", grouped, grouped_smem),
     ]
 
 

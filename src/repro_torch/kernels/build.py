@@ -30,11 +30,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"fused_get": 0, "fused_scan": 0, "row_scatter": 0,
             "log_replay": 0, "multi_scatter": 0, "key_search": 0,
-            "key_search_image": 0, "leaf_merge": 0, "paged_attention": 0}
+            "key_search_image": 0, "leaf_merge": 0, "paged_attention": 0,
+            "moe_grouped": 0}
 
 #: every CUDA source of the port, by name (``csrc/<name>.cu``)
 SOURCES = ("fused_read", "row_scatter", "log_replay", "multi_scatter",
-           "key_search", "leaf_merge", "paged_attention")
+           "key_search", "leaf_merge", "paged_attention", "moe_grouped")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LAUNCHERS: dict[str, object] = {}

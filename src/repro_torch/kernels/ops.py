@@ -6,7 +6,8 @@ hand-written kernel (``key_search.py``: the KSU floor search, plain and
 over packed node images; ``leaf_merge.py``: the RSU merge;
 ``delta_scatter.py``: row scatter, multi-field scatter and log replay;
 ``fused_read.py``; ``paged_attention.py``: decode attention over paged
-KV), and any other device raises.  A CUDA call never falls
+KV; ``moe_grouped.py``: prefill's grouped expert FFN), and any other
+device raises.  A CUDA call never falls
 back to the plain version.
 
 ``READ_DISPATCHES`` meters dispatched launches per read batch, recorded
@@ -26,6 +27,7 @@ from . import delta_scatter as _ds
 from . import fused_read as _fr
 from . import key_search as _ks
 from . import leaf_merge as _lm
+from . import moe_grouped as _mg
 from . import paged_attention as _pa
 from . import ref as _ref
 
@@ -208,3 +210,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
                                    seq_lens, start_pos, **kw)
     return _ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
                                     seq_lens, start_pos, **kw)
+
+
+def moe_grouped(x2d, gates, ids, w_gate, w_up, w_down):
+    """The grouped expert FFN: token t of x2d [T, d] through its experts
+    ids[t] ([T, k] int64) only, weighted by gates[t] ([T, k] f32) and
+    summed in f32 in slot order; weights [E, d, f], [E, d, f], [E, f,
+    d].  Returns [T, d] of x2d's type."""
+    if _on_cuda(x2d):
+        return _mg.moe_grouped(x2d, gates, ids, w_gate, w_up, w_down)
+    return _mg.moe_grouped_plain(x2d, gates, ids, w_gate, w_up, w_down)

@@ -2,7 +2,10 @@
 oracles in ``repro.kernels.ref``: the KSU floor search, plain and over
 packed node images, the RSU leaf merge, the fused reads, the delta-sync
 row scatter, the legacy layout's multi-field scatter, the log-replay
-scatter and paged decode attention).
+scatter and paged decode attention), and the routed expert FFN over rows
+sorted by expert (``ragged_dot``, ``routed_ffn``: the training MoE's
+ragged products in ``models/moe.py`` and the plain version of
+``moe_grouped.py``).
 
 The kernel wrappers (``key_search.py``, ``leaf_merge.py``,
 ``delta_scatter.py``, ``fused_read.py``) are held to these bit for bit,
@@ -20,6 +23,7 @@ runs them.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core import read_path as _rp
 from ..core.keys import torch_key_cmp
@@ -581,3 +585,23 @@ def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
     o = (w[..., None] * acc).sum(dim=3) \
         / (w * l).sum(dim=-1).clamp(min=1e-30)[..., None]
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def ragged_dot(a, w, sizes):
+    """[m, p] x [E, p, q], rows grouped by ``sizes`` -> [m, q]: group e's
+    rows times w[e]; rows past the groups are zeros (as ragged_dot's)."""
+    out = a.new_zeros(a.shape[0], w.shape[-1])
+    lo = 0
+    for e, n in enumerate(sizes):
+        if n:
+            out[lo:lo + n] = torch.matmul(a[lo:lo + n], w[e])
+        lo += n
+    return out
+
+
+def routed_ffn(xs, w_gate, w_up, w_down, sizes):
+    """The expert FFN over rows sorted by expert, group e through expert
+    e: (h = silu(xs w_gate[e]) * (xs w_up[e]), y = h w_down[e]), each
+    product rounded to the model type."""
+    h = F.silu(ragged_dot(xs, w_gate, sizes)) * ragged_dot(xs, w_up, sizes)
+    return h, ragged_dot(h, w_down, sizes)

@@ -1,7 +1,7 @@
 """Mixture-of-Experts FFN (port of ``repro.models.moe``) for mixtral,
 olmoe and jamba.
 
-Two interchangeable implementations with the same math:
+Three interchangeable implementations with the same math:
 
   * ``moe_dense``  — every expert computes every token, and the outputs
     are weighted by the top-k router probabilities (E/k more products
@@ -12,9 +12,18 @@ Two interchangeable implementations with the same math:
     only.  The reference computes these with ``jax.lax.ragged_dot``
     outside any Pallas kernel; the port loops over the groups with
     ``torch.matmul``.
+  * ``moe_grouped`` — forward only, for prefill: the same stable sort,
+    made on the device, then grouped products over the routed rows and
+    a combine in f32 in slot order (``kernels/ops.moe_grouped``: the
+    hand-written kernels of ``kernels/moe_grouped.py`` on CUDA, their
+    plain version on the CPU), rounding as ``moe_dense`` does and reading
+    nothing back to the host.  The serving engine's prefill asks for it;
+    decode stays dense, since a decode batch of 32 rows touches nearly
+    every expert and routing would read the same weight bytes.
 
-In bf16 the two round at other steps and may route a near-tied token
-differently, so each is held to the reference's same implementation.
+In bf16 dense and ragged round at other steps and may route a near-tied
+token differently, so each is held to the reference's same
+implementation; grouped rounds as dense does.
 
 Router: softmax over the expert logits in f32, top-k, renormalised (the
 mixtral formulation; olmoe normalises the same way).
@@ -48,6 +57,8 @@ import torch.nn.functional as F
 
 from ..compat import PartitionSpec as P, axis_index, mesh_sizes, psum, \
     shard_map
+from ..kernels import ops as kops
+from ..kernels.ref import ragged_dot, routed_ffn
 from .config import ArchConfig
 from .schema import ParamDef
 
@@ -104,16 +115,8 @@ def moe_ragged(p, x, cfg: ArchConfig):
 
     order = torch.argsort(eid, stable=True)
     xs = xt[order]
-    sizes = _group_sizes(eid, E)
-    yy = torch.empty_like(xs)
-    lo = 0
-    for e, n in enumerate(sizes):
-        if n:
-            rows = xs[lo:lo + n]
-            h = F.silu(torch.matmul(rows, p["w_gate"][e])) \
-                * torch.matmul(rows, p["w_up"][e])
-            yy[lo:lo + n] = torch.matmul(h, p["w_down"][e])
-        lo += n
+    _, yy = routed_ffn(xs, p["w_gate"], p["w_up"], p["w_down"],
+                       _group_sizes(eid, E))
 
     inv = torch.argsort(order)
     y = yy[inv] * gates[:, None].to(yy.dtype)
@@ -135,18 +138,6 @@ def _group_sizes(eid, n_groups: int) -> list[int]:
 
 
 # --- ragged FFN with exact ragged gradients ---------------------------------
-def _ragged_dot(a, w, sizes):
-    """[m, p] x [E, p, q], rows grouped by ``sizes`` -> [m, q]: group e's
-    rows times w[e]; rows past the groups are zeros (as ragged_dot's)."""
-    out = a.new_zeros(a.shape[0], w.shape[-1])
-    lo = 0
-    for e, n in enumerate(sizes):
-        if n:
-            out[lo:lo + n] = torch.matmul(a[lo:lo + n], w[e])
-        lo += n
-    return out
-
-
 def _ragged_outer(a, b, sizes):
     """[m, p], [m, q], groups over m -> [E, p, q]: per group a_gᵀ · b_g."""
     out = a.new_zeros(len(sizes), a.shape[1], b.shape[1])
@@ -166,25 +157,25 @@ class _RaggedFFN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xs, wg, wu, wd, sizes):
-        gg = _ragged_dot(xs, wg, sizes)
-        uu = _ragged_dot(xs, wu, sizes)
+        gg = ragged_dot(xs, wg, sizes)
+        uu = ragged_dot(xs, wu, sizes)
         hh = F.silu(gg) * uu
         ctx.save_for_backward(xs, wg, wu, wd, gg, uu, hh)
         ctx.sizes = sizes
-        return _ragged_dot(hh, wd, sizes)
+        return ragged_dot(hh, wd, sizes)
 
     @staticmethod
     def backward(ctx, dy):
         xs, wg, wu, wd, gg, uu, hh = ctx.saved_tensors
         gs = ctx.sizes
-        dhh = _ragged_dot(dy, wd.transpose(1, 2), gs)
+        dhh = ragged_dot(dy, wd.transpose(1, 2), gs)
         dwd = _ragged_outer(hh, dy, gs)
         sig = torch.sigmoid(gg)
         dsilu = sig * (1 + gg * (1 - sig))
         dgg = dhh * uu * dsilu
         duu = dhh * F.silu(gg)
-        dxs = _ragged_dot(dgg, wg.transpose(1, 2), gs) \
-            + _ragged_dot(duu, wu.transpose(1, 2), gs)
+        dxs = ragged_dot(dgg, wg.transpose(1, 2), gs) \
+            + ragged_dot(duu, wu.transpose(1, 2), gs)
         dwg = _ragged_outer(xs, dgg, gs)
         dwu = _ragged_outer(xs, duu, gs)
         return dxs, dwg, dwu, dwd, None
@@ -302,11 +293,26 @@ def moe_fsliced_ragged(p, x, cfg: ArchConfig, *, mesh, dp_axes,
     )(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
 
 
+def moe_grouped(p, x, cfg: ArchConfig):
+    """Each token through its top-k experts only, with no host read-back:
+    ``kernels/ops.moe_grouped`` over ``router_probs``' routes.  Forward
+    only (no autograd); rounds as ``moe_dense`` does.  x: [B, S, d]."""
+    B, S, d = x.shape
+    top_p, top_i = router_probs(p, x, cfg)
+    out = kops.moe_grouped(x.reshape(B * S, d).contiguous(),
+                           top_p.reshape(B * S, -1).contiguous(),
+                           top_i.reshape(B * S, -1).contiguous(),
+                           p["w_gate"], p["w_up"], p["w_down"])
+    return out.reshape(B, S, d)
+
+
 def moe(p, x, cfg: ArchConfig, impl="dense"):
     if callable(impl):
         return impl(p, x, cfg)
     if impl == "ragged":
         return moe_ragged(p, x, cfg)
+    if impl == "grouped":
+        return moe_grouped(p, x, cfg)
     return moe_dense(p, x, cfg)
 
 

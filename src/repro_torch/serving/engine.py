@@ -138,9 +138,12 @@ class ServingEngine:
             n_blocks = len(toks) // self.page_size
             pages = [self.kv.allocate(r.rid, b) for b in range(n_blocks)]
             with span(ring, "model.prefill"):
+                # prefill's MoE through each token's top-k experts only;
+                # decode_step stays dense (a decode batch touches nearly
+                # every expert)
                 logits, cache = self.model.prefill(
                     torch.from_numpy(toks[None]).to(self.device),
-                    self.page_size, S - 1)
+                    self.page_size, S - 1, moe_impl="grouped")
             with span(ring, "engine.kv_write"):
                 idx = torch.tensor(pages, device=self.device)
                 for name, pools in self.pools.items():

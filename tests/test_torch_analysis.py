@@ -391,7 +391,8 @@ def test_kernel_registry_runs_clean_on_the_plain_versions():
         "ops.snapshot_delta_scatter", "ops.snapshot_image_scatter",
         "ops.snapshot_multi_scatter", "ops.log_replay_scatter",
         "ops.batched_get_fused", "ops.batched_scan_fused", "ops.key_search",
-        "ops.key_search_image", "ops.leaf_merge", "ops.paged_attention"}
+        "ops.key_search_image", "ops.leaf_merge", "ops.paged_attention",
+        "ops.moe_grouped"}
     for entry, rec in runs:
         assert rec.ops, entry.name            # the plain version's aten ops
         assert rec.readbacks is None and rec.alloc_rise is None
@@ -618,8 +619,8 @@ def test_runner_writes_report(tmp_path):
     report = json.loads(out.read_text())
     assert report["ok"] and report["lint"] == [] \
         and report["kernel_check"] == []
-    assert report["entry_points"] == 10 and report["baselined"] <= 2
-    assert report["device"] == "cpu" and len(report["entries"]) == 10
+    assert report["entry_points"] == 11 and report["baselined"] <= 2
+    assert report["device"] == "cpu" and len(report["entries"]) == 11
     assert all(e["findings"] == [] for e in report["entries"])
 
 

@@ -1363,19 +1363,23 @@ def test_encdec_steps_on_cuda_matches_cpu(cuda, arch):
 # ------------------------------------------------------------ the analysis
 #: device -> host read-backs a dispatch makes on the card, pinned: the row
 #: and multi-field scatters read the rows' bounds back (``ref.check_rows``),
-#: the log replay its verdict flag; the fused reads, the KSU/RSU and paged
-#: attention none
+#: the log replay its verdict flag; the fused reads, the KSU/RSU, paged
+#: attention and the grouped MoE none
 KERNEL_READBACKS = {
     "ops.snapshot_delta_scatter": 1, "ops.snapshot_image_scatter": 1,
     "ops.snapshot_multi_scatter": 1, "ops.log_replay_scatter": 1,
     "ops.batched_get_fused": 0, "ops.batched_scan_fused": 0,
     "ops.key_search": 0, "ops.key_search_image": 0, "ops.leaf_merge": 0,
-    "ops.paged_attention": 0}
+    "ops.paged_attention": 0, "ops.moe_grouped": 0}
+#: launches of its own kernel a dispatch, where not 1: the grouped MoE's
+#: dispatch, gather, gate/up, down and combine
+KERNEL_LAUNCHES = {"ops.moe_grouped": 5}
 
 
 def test_kernel_check_clean_on_the_card(cuda):
     """Every entry point of kernels/ops.py on the card: no finding, one
-    launch of its own kernel a dispatch and none of another, the pinned
+    launch of its own kernel a dispatch (``KERNEL_LAUNCHES`` where a
+    dispatch takes several) and none of another, the pinned
     read-backs, in-place scatters that return their destination with an
     allocation rise below one destination, and every shared-memory figure
     under the device's opt-in limit, the fused read's mirror equal to its
@@ -1388,8 +1392,9 @@ def test_kernel_check_clean_on_the_card(cuda):
         cuda).shared_memory_per_block_optin
     assert {e.name for e, _ in runs} == set(KERNEL_READBACKS)
     for entry, rec in runs:
-        assert rec.launches[entry.counter] == 1, entry.name
-        assert sum(rec.launches.values()) == 1, entry.name
+        n = KERNEL_LAUNCHES.get(entry.name, 1)
+        assert rec.launches[entry.counter] == n, entry.name
+        assert sum(rec.launches.values()) == n, entry.name
         assert rec.readbacks == KERNEL_READBACKS[entry.name] \
             == entry.readbacks, (entry.name, rec.readbacks)
         assert max(b for _, b in rec.smem) <= limit
@@ -1809,3 +1814,159 @@ def test_store_pipeline_stages_on_cuda(cuda):
     assert r["pipeline"]["pipelined_epoch_s"] == max(
         r["pipeline"]["export_stage_s"], r["pipeline"]["read_stage_s"]) > 0
     assert r["temp_bytes"] is not None and r["collective_bytes"] == 0
+
+
+# ------------------------------------------------ the grouped MoE of prefill
+#: (name, E, k, d, f, T): olmoe-1b-7b's and jamba-v0.1-52b's full widths
+#: at the docqa cells' prompt lengths
+GROUPED_FULL = (("olmoe_512", 64, 8, 2048, 1024, 512),
+                ("olmoe_1536", 64, 8, 2048, 1024, 1536),
+                ("jamba_2048", 16, 2, 4096, 14336, 2048))
+# bf16 products summed in another order than cuBLAS's: a few ulps of h and
+# y; outputs of magnitude ~1 (inputs N(0, 1), weights N(0, 1 / K))
+GROUPED_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _grouped_inputs(E, k, d, f, T, dtype, dev, seed=0):
+    """Seeded inputs of one grouped FFN with skewed routes: the last
+    quarter of the experts get no rows, the first two most of them.
+    Returns (x [T, d], gates [T, k] f32, ids [T, k] int64, w_gate, w_up,
+    w_down)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(T, d, generator=g, device=dev).to(dtype)
+    skew = torch.zeros(E, device=dev)
+    skew[:2] = 2.0
+    skew[E - max(1, E // 4):] = -1e9
+    logits = torch.randn(T, E, generator=g, device=dev) + skew
+    probs, ids = torch.topk(torch.softmax(logits, -1), k, dim=-1)
+    gates = probs / probs.sum(-1, keepdim=True)
+    w = [(torch.randn(E, a, b, generator=g, device=dev) / a ** 0.5)
+         .to(dtype) for a, b in ((d, f), (d, f), (f, d))]
+    return (x, gates.contiguous(), ids.contiguous(), *w)
+
+
+@pytest.mark.parametrize("case", GROUPED_FULL, ids=[c[0] for c in GROUPED_FULL])
+def test_moe_grouped_kernel_matches_plain(cuda, case):
+    """The grouped FFN's five launches against its plain version on the
+    card in bf16 at full widths, skewed routes leaving experts empty: the
+    dispatch exactly, h and y within a few ulps, the combine exactly on
+    the kernel's own y, the layer within ``GROUPED_BF16_TOL``."""
+    from repro_torch.kernels import moe_grouped as mg
+    _, E, k, d, f, T = case
+    x, gates, ids, wg, wu, wd = _grouped_inputs(E, k, d, f, T,
+                                                torch.bfloat16, cuda)
+    assert mg.uses_wgmma(x.dtype, d, f)
+    build.reset_launches()
+    pos, meta = mg.dispatch(ids, E, mg.WGMMA_ROWS)
+    xs = mg.gather(x, pos, k)
+    h = mg.grouped_gemm(xs, meta, wg, wu, 0, True)
+    y = mg.grouped_gemm(h, meta, wd, wd, 1, True)
+    out = mg.combine(y, pos, gates)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["moe_grouped"] == 5
+    want_pos, want_meta = mg.dispatch_plain(ids, E, mg.WGMMA_ROWS)
+    assert torch.equal(pos, want_pos) and torch.equal(meta, want_meta)
+    assert int(meta[E - 1]) == int(meta[E]) == T * k     # empty experts
+    assert torch.equal(xs, mg.gather_plain(x, want_pos, k))
+    want_h, want_y = mg.ffn_plain(xs, want_meta, wg, wu, wd)
+    torch.testing.assert_close(h.float(), want_h.float(), **GROUPED_BF16_TOL)
+    torch.testing.assert_close(y.float(), want_y.float(), **GROUPED_BF16_TOL)
+    # the down product of the kernel's own h: only the summing order differs
+    bounds = want_meta[:E + 1].tolist()
+    y_of_h = torch.zeros_like(y)
+    for e in range(E):
+        y_of_h[bounds[e]:bounds[e + 1]] = h[bounds[e]:bounds[e + 1]] @ wd[e]
+    err = (y.float() - y_of_h.float()).abs()
+    assert float(err.mean()) < 1e-3 * float(y_of_h.float().abs().mean()) \
+        + 1e-6
+    assert torch.equal(out, mg.combine_plain(y, pos, gates))
+    want = mg.moe_grouped_plain(x, gates, ids, wg, wu, wd)
+    torch.testing.assert_close(out.float(), want.float(), **GROUPED_BF16_TOL)
+    assert float((out.float() - want.float()).abs().mean()) \
+        < 1e-2 * float(want.float().abs().mean())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_simt_matches_plain(cuda, dtype):
+    """Widths that are not whole tiles, and f32, take the SIMT products:
+    against the plain version on the card, f32 to 1e-5 of the largest
+    output (TF32 off), bf16 within ``GROUPED_BF16_TOL``."""
+    from repro_torch.kernels import moe_grouped as mg
+    from repro_torch.kernels import ops
+    E, k, d, f, T = 6, 2, 72, 40, 37
+    args = _grouped_inputs(E, k, d, f, T, dtype, cuda, seed=3)
+    assert not mg.uses_wgmma(dtype, d, f)
+    build.reset_launches()
+    got = ops.moe_grouped(*args)
+    assert build.LAUNCHES["moe_grouped"] == 5
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = mg.moe_grouped_plain(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) \
+            <= 1e-5 * float(want.abs().max())
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **GROUPED_BF16_TOL)
+    # the dispatch at one token and with every token on one expert
+    for ids in (args[2][:1], torch.zeros_like(args[2][:, :1])):
+        for bm in (mg.SIMT_ROWS, mg.WGMMA_ROWS):
+            got_d = mg.dispatch(ids.contiguous(), E, bm)
+            want_d = mg.dispatch_plain(ids, E, bm)
+            assert all(map(torch.equal, got_d, want_d))
+
+
+def test_moe_grouped_layer_has_no_host_sync(cuda):
+    """``models/moe.moe_grouped`` (router, dispatch, products, combine) on
+    an olmoe-width layer runs under sync-debug "error": nothing of it
+    reads the device back to the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as me
+    cfg = get_config("olmoe-1b-7b")
+    g = torch.Generator(device=cuda).manual_seed(5)
+    p = {name: (torch.randn(spec.shape, generator=g, device=cuda)
+                / spec.shape[-2] ** 0.5).to(spec.dtype)
+         for name, spec in me.moe_schema(cfg).items()}
+    x = torch.randn(1, 512, cfg.d_model, generator=g,
+                    device=cuda).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = me.moe(p, x, cfg, impl="grouped")
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["moe_grouped"] == 5
+    dense = me.moe_dense(p, x, cfg)
+    assert float((out.float() - dense.float()).abs().mean()) \
+        < 1e-2 * float(dense.float().abs().mean())
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "jamba_v0p1_52b"])
+def test_prefill_grouped_launches_per_moe_layer(cuda, arch):
+    """A bf16 prefill with ``moe_impl="grouped"`` launches the grouped
+    FFN's five kernels once in every MoE layer, and its logits stay with
+    the dense prefill's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import schema as sc
+    from repro_torch.models import transformer as tf
+    cfg = get_smoke_config(arch)
+    params = sc.init(tf.schema(cfg), torch.Generator(
+        device=cuda).manual_seed(0), cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        1, cfg.vocab, (1, 64))).to(cuda)
+    moe_layers = cfg.n_superblocks * sum(
+        f == "moe" for _, f in tf.layer_kinds(cfg))
+    build.reset_launches()
+    got, _ = tf.prefill(params, cfg, toks, 16, 63, moe_impl="grouped")
+    assert build.LAUNCHES["moe_grouped"] == 5 * moe_layers > 0
+    build.reset_launches()
+    want, _ = tf.prefill(params, cfg, toks, 16, 63)
+    assert build.LAUNCHES["moe_grouped"] == 0
+    torch.testing.assert_close(got.float(), want.float(), rtol=5e-2,
+                               atol=5e-2)

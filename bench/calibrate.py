@@ -62,7 +62,7 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         with planted():
             loop, params = harness.set_up(cell, seed)
-            run = harness.measure(loop, arch, args.seconds, False)
+            run = harness.measure(loop, cell, args.seconds, False)
         loop.engine = None
         gc.collect()
         torch.cuda.empty_cache()
@@ -74,8 +74,10 @@ def main(argv=None) -> int:
                "program": {**_summary(gaps), "correct": ok,
                            "checks": checks}}
         if args.control:
-            ref = check.reference_logits(params, arch, sample)
-            ctl = check.reference_logits(params, arch, sample, "fp8")
+            ref = check.reference_logits(cell.reference, params, arch,
+                                         sample)
+            ctl = check.reference_logits(cell.reference, params, arch,
+                                         sample, "fp8")
             summary = _summary([check.gaps(lg, c.argmax(-1).cpu())
                                 for lg, c in zip(ref, ctl)])
             ok, checks = check.verdict(cell.limits, summary["mean"], 0,

@@ -2,13 +2,13 @@
 window finished, drawn from the seed with the longest among them, run
 through the plain reference over its prompt and served tokens.  At each
 served position the gap is the reference's best logit less the logit of
-the token served there (0 where the reference would serve it too)."""
+the token served there (0 where the reference would serve it too).  The
+reference is the configuration's module (``harness.reference_module``),
+which the caller passes in."""
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from .reference import model as ref
 
 
 def sample(finished: list, k: int, seed: int) -> list:
@@ -24,10 +24,10 @@ def sample(finished: list, k: int, seed: int) -> list:
     return [longest] + [rest[i] for i in sorted(pick)]
 
 
-def reference_logits(params, arch: dict, reqs: list, precision="f32"):
-    """[served tokens, vocab] logits of each request at the positions
-    its tokens were served from: the prompt's last and every served one
-    but the last."""
+def reference_logits(ref, params, arch: dict, reqs: list, precision="f32"):
+    """[served tokens, vocab] logits, by the reference module ``ref``, of
+    each request at the positions its tokens were served from: the
+    prompt's last and every served one but the last."""
     dev = params["embed"].device
     seqs = [torch.from_numpy(np.concatenate(
         [r.prompt, np.asarray(r.tokens[:-1], np.int32)])).to(dev)
@@ -46,10 +46,11 @@ def gaps(logits, chosen) -> np.ndarray:
     return g.cpu().numpy()
 
 
-def served_gaps(params, arch: dict, reqs: list) -> list:
-    """Each sampled request's gaps at its served tokens."""
-    return [gaps(lg, r.tokens)
-            for r, lg in zip(reqs, reference_logits(params, arch, reqs))]
+def served_gaps(ref, params, arch: dict, reqs: list) -> list:
+    """Each sampled request's gaps at its served tokens, by the reference
+    module ``ref``."""
+    return [gaps(lg, r.tokens) for r, lg in
+            zip(reqs, reference_logits(ref, params, arch, reqs))]
 
 
 def verdict(limits: dict, mean_gap: float | None, failed: int,

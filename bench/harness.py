@@ -9,7 +9,9 @@ client sees tokens only when ``step()`` returns.
 
 Everything a cell is made of is found by name: ``BENCHMARK.json`` names
 its configuration and traffic, ``configs/<config>.json`` holds the
-model, ``traffic/<traffic>.json`` the mix, ``limits/<cell>.json`` the
+model, ``reference/<module>.py`` its plain reference (the module the
+configuration names under ``"reference"``, ``model`` where it names
+none), ``traffic/<traffic>.json`` the mix, ``limits/<cell>.json`` the
 correctness limits, and ``metrics/<metric>.py`` reads each per-layer
 metric from the run's ``Run`` record.
 """
@@ -19,15 +21,17 @@ import dataclasses
 import importlib.util
 import json
 import time
+import types
 from pathlib import Path
 
 import torch
 
 from . import check, devtrace, stats, traffic, weights
-from .reference import model as ref
 
 HERE = Path(__file__).resolve().parent
 TRACE_SECONDS = 5.0           # the traced tail after the window
+#: what every reference module exports (bench/reference/__init__.py)
+REFERENCE_EXPORTS = ("layout", "logits_at", "layer_kinds", "n_periods")
 
 
 @dataclasses.dataclass
@@ -39,6 +43,7 @@ class Cell:
     chips: int
     end_to_end: list
     per_layer: list
+    reference: types.ModuleType       # the configuration's plain reference
 
 
 def config_file(name: str, root: Path = HERE.parent) -> dict:
@@ -62,17 +67,40 @@ def load_cell(name: str, root: Path = HERE.parent) -> Cell:
         return name in m.get("workloads", [name])
     return Cell(name, config, traffic.load(w["traffic"], here), limits,
                 w["chips"], [m for m in bench["end_to_end"] if reports(m)],
-                [m for m in bench["per_layer"] if reports(m)])
+                [m for m in bench["per_layer"] if reports(m)],
+                reference_module(config, here))
+
+
+def _load(path: Path, name: str) -> types.ModuleType:
+    """The module of the file ``path``, executed anew under ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def metric_reader(name: str, root: Path = HERE):
     """``read(run)`` of ``root/metrics/<name>.py``."""
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_"),
-        root / "metrics" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(root / "metrics" / f"{name}.py",
+                 "bench_metric_" + name.replace(".", "_")).read
+
+
+def reference_module(config: dict, root: Path = HERE) -> types.ModuleType:
+    """The plain reference of the configuration ``config``: the module
+    ``root/reference/<module>.py`` that its ``"reference"`` names,
+    ``model`` where it names none."""
+    name = config.get("reference", "model")
+    path = root / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"configuration {config.get('name')!r} names the reference "
+            f"{name!r}, and {path} is missing")
+    mod = _load(path, "bench_reference_" + name.replace(".", "_"))
+    missing = [f for f in REFERENCE_EXPORTS
+               if not callable(getattr(mod, f, None))]
+    if missing:
+        raise AttributeError(f"{path} does not export {missing}")
+    return mod
 
 
 @dataclasses.dataclass
@@ -90,7 +118,8 @@ class Step:
 
 @dataclasses.dataclass
 class Run:
-    """What a run measured; the per-layer readers take it."""
+    """What a run measured; the per-layer readers take it, and count
+    with ``ref``, the plain reference of its configuration."""
     arch: dict
     slots: int
     t0: float
@@ -99,6 +128,7 @@ class Run:
     steps: list                       # the window's steps
     trace: devtrace.Trace | None = None
     trace_steps: list = dataclasses.field(default_factory=list)
+    ref: types.ModuleType | None = None
 
 
 class Loop:
@@ -170,7 +200,7 @@ def set_up(cell: Cell, seed: int, device="cuda", engine_factory=None):
     if torch.device(device).type == "cuda":
         from repro_torch.kernels import build
         build.build(["fused_read", "row_scatter", "paged_attention"])
-    params = weights.draw(ref.layout(arch), seed, device)
+    params = weights.draw(cell.reference.layout(arch), seed, device)
     engine = (engine_factory or build_engine)(cell, params, device)
     mix = traffic.Traffic(cell.traffic, seed, arch["vocab"])
     for length in mix.buckets():
@@ -186,13 +216,14 @@ def set_up(cell: Cell, seed: int, device="cuda", engine_factory=None):
     return loop, params
 
 
-def measure(loop: Loop, arch: dict, seconds: float, trace: bool) -> Run:
+def measure(loop: Loop, cell: Cell, seconds: float, trace: bool) -> Run:
     """``seconds`` of the closed loop, then with ``trace`` the traced
     tail."""
     steps = []
     t0 = time.perf_counter()
     loop.run_until(t0 + seconds, steps)
-    run = Run(arch, loop.mix.slots, t0, steps[-1].t, loop.records, steps)
+    run = Run(cell.config["arch"], loop.mix.slots, t0, steps[-1].t,
+              loop.records, steps, ref=cell.reference)
     if trace:
         run.trace, run.trace_steps = devtrace.trace_tail(
             loop, loop.engine, TRACE_SECONDS)
@@ -234,7 +265,8 @@ def judge(cell: Cell, run: Run, params, seed: int):
         len(r.tokens) != expected_tokens(r.prompt_len, r.max_new, max_seq)
         or not all(0 <= t < vocab for t in r.tokens) for r in w.finished)
     sample = check.sample(w.finished, cell.traffic["check_requests"], seed)
-    gaps = check.served_gaps(params, cell.config["arch"], sample)
+    gaps = check.served_gaps(cell.reference, params, cell.config["arch"],
+                             sample)
     n = sum(len(g) for g in gaps)
     mean = sum(float(g.sum()) for g in gaps) / n if n else None
     off_top = sum(int((g > 0).sum()) for g in gaps) / n if n else None

@@ -14,7 +14,7 @@ def read(run):
     if not us or not steps:
         return None
     # an idle row attends to one position of the scratch page
-    nbytes = counts.attention_layers(run.arch) * sum(
+    nbytes = counts.attention_layers(run.ref, run.arch) * sum(
         counts.paged_attention_bytes(
             run.arch, s.keys + run.slots - s.decoded, run.slots)
         for s in steps)

@@ -67,8 +67,7 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()} available", file=sys.stderr)
         return 3
     loop, params = harness.set_up(cell, args.seed)
-    run = harness.measure(loop, cell.config["arch"], args.seconds,
-                          bool(args.trace))
+    run = harness.measure(loop, cell, args.seconds, bool(args.trace))
     setup_s = run.t0 - T_START
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": cell.chips,

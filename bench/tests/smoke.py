@@ -27,8 +27,10 @@ def arch(name: str) -> dict:
 
 
 def cell(name: str) -> harness.Cell:
-    return harness.Cell(f"smoke-{name}", {"arch": arch(name)}, dict(MIX),
-                        {"mean_gap": {"limit": LIMIT}}, 1, [], [])
+    config = {"arch": arch(name)}
+    return harness.Cell(f"smoke-{name}", config, dict(MIX),
+                        {"mean_gap": {"limit": LIMIT}}, 1, [], [],
+                        harness.reference_module(config))
 
 
 def f32_engine(c, params, device):
@@ -48,4 +50,4 @@ def run(c: harness.Cell, seed: int, seconds: float = 3.0):
     """(run, weights) of ``seconds`` of the closed loop on the CPU."""
     loop, params = harness.set_up(c, seed, device="cpu",
                                   engine_factory=f32_engine)
-    return harness.measure(loop, c.config["arch"], seconds, False), params
+    return harness.measure(loop, c, seconds, False), params

@@ -39,8 +39,8 @@ def test_control_fails(name):
     ok, checks, sample, params = _judge(c, 11, seconds=4.0)
     assert ok
     arch = c.config["arch"]
-    ref = check.reference_logits(params, arch, sample)
-    ctl = check.reference_logits(params, arch, sample, "fp8")
+    ref = check.reference_logits(c.reference, params, arch, sample)
+    ctl = check.reference_logits(c.reference, params, arch, sample, "fp8")
     g = np.concatenate([check.gaps(r, x.argmax(-1))
                         for r, x in zip(ref, ctl)])
     assert g.mean() > smoke.LIMIT
@@ -103,7 +103,7 @@ def test_cell_mix_and_metric_found_by_name(tmp_path):
     assert [m["name"] for m in c.per_layer] == ["prompts_prefilled"]
     loop, params = harness.set_up(c, 4, device="cpu",
                                   engine_factory=smoke.f32_engine)
-    r = harness.measure(loop, arch, 2.0, False)
+    r = harness.measure(loop, c, 2.0, False)
     read = harness.metric_reader("prompts_prefilled", bench)
     assert read(r) >= 1
     assert harness.judge(c, r, params, 4)[0]

@@ -115,9 +115,10 @@ def test_counts_match_the_ports_active_parameters(name):
     cfg = _configs(name)[1]
     arch = dataclasses.asdict(cfg)
     head = 2 * arch["d_model"] * arch["vocab"]      # embedding and head
-    assert counts.active_body_params(arch) + head == pytest.approx(
+    assert counts.active_body_params(ref, arch) + head == pytest.approx(
         cfg.active_param_count(), rel=1e-5)
-    one = counts.decode_flops(arch, 1, 1000)
-    assert counts.decode_flops(arch, 2, 2000) == pytest.approx(2 * one)
-    assert counts.prefill_flops(arch, 1) == pytest.approx(one - (
-        counts.decode_flops(arch, 1, 1000) - counts.decode_flops(arch, 1, 1)))
+    one = counts.decode_flops(ref, arch, 1, 1000)
+    assert counts.decode_flops(ref, arch, 2, 2000) == pytest.approx(2 * one)
+    assert counts.prefill_flops(ref, arch, 1) == pytest.approx(one - (
+        counts.decode_flops(ref, arch, 1, 1000)
+        - counts.decode_flops(ref, arch, 1, 1)))

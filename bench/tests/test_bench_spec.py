@@ -126,6 +126,23 @@ def test_metrics():
         assert f"| {layer} |" in text, layer
 
 
+def test_reference_modules():
+    """Each configuration file's ``reference``, where present, names a
+    module under bench/reference/ that exports the contract's functions
+    (``model`` where absent)."""
+    from bench import harness
+    for c in SPEC["configs"]:
+        body = json.loads((ROOT / c["file"]).read_text())
+        module = body.get("reference", "model")
+        assert NAME.match(module), module
+        assert (ROOT / "bench" / "reference" / f"{module}.py").is_file()
+        ref = harness.reference_module(body)
+        for f in harness.REFERENCE_EXPORTS:
+            assert callable(getattr(ref, f, None)), (module, f)
+        if any(k == "M" for k, _ in ref.layer_kinds(body["arch"])):
+            assert hasattr(ref, "ssm_flops") or hasattr(ref, "ssm_dims")
+
+
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_limits_files(cell):
     lim = json.loads((ROOT / "bench" / "limits" / f"{cell}.json")
